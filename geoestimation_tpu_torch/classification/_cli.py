@@ -1,0 +1,111 @@
+"""Flags and engine construction shared by the inference and test CLIs.
+
+The flag names are those of `classification/inference.py` and
+`classification/test.py`. A flag of a feature the port does not have yet
+is parsed and then refused with a message naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+import torch
+
+# flag -> (default, ROADMAP.md Queue 1 item that ports it)
+NOT_PORTED = {
+    "feature_tta": (False, "TTA variants"),
+    "feature_tta_level": (3, "TTA variants"),
+    "exact_tta": (False, "Host ingest: native binding, host_exact, "
+                         "decode_batch_tencrop"),
+    "calib_dir": (None, "int8 serving path"),
+    "calib_images": (64, "int8 serving path"),
+    "calib_stat": ("auto", "int8 serving path"),
+    "calib_headroom": (1.0, "int8 serving path"),
+    "recalibrate": (False, "int8 serving path"),
+    "coordinator": (None, "Training"),
+    "num_processes": (None, "Training"),
+    "process_id": (None, "Training"),
+}
+
+
+def add_shared_args(p: argparse.ArgumentParser):
+    p.add_argument("--checkpoint", required=True,
+                   help="checkpoint directory (hparams.yaml + state_dict.pt)")
+    p.add_argument("--hparams", default=None,
+                   help="optional explicit hparams.yaml (default: bundled "
+                        "with the checkpoint)")
+    p.add_argument("--batch_size", type=int, default=64)
+    p.add_argument("--num_workers", type=int, default=None,
+                   help="host decode threads")
+    p.add_argument("--crops", type=int, default=10, choices=[1, 5, 10],
+                   help="TTA crops per image")
+    p.add_argument("--precision", type=int, default=16, choices=[8, 16, 32],
+                   help="16=bfloat16 backbone, 32=float32 (8, int8, is not "
+                        "ported yet)")
+    p.add_argument("--gpu", action="store_true",
+                   help="accepted for reference CLI compatibility; the port "
+                        "runs on CUDA by default")
+    p.add_argument("--cpu", action="store_true",
+                   help="run on the CPU instead of CUDA")
+    p.add_argument("--fast", action="store_true",
+                   help="fold BatchNorm into conv weights at load "
+                        "(identical predictions up to bf16 rounding)")
+    p.add_argument("--tta_fold", default="prob_mean",
+                   choices=["prob_mean", "log_mean", "logit_mean"],
+                   help="how per-crop logits combine: prob_mean = mean of "
+                        "softmax probs (reference convention, default), "
+                        "log_mean = geometric, logit_mean = raw logits")
+    p.add_argument("--fast_decode", action="store_true",
+                   help="scaled DCT JPEG decode on the host ingest path "
+                        "(faster on large photos; slightly different "
+                        "pixels)")
+    not_ported = "not ported yet (see ROADMAP.md)"
+    p.add_argument("--feature_tta", action="store_true", help=not_ported)
+    p.add_argument("--feature_tta_level", type=int, default=3,
+                   choices=[1, 2, 3], help=not_ported)
+    p.add_argument("--exact_tta", action="store_true", help=not_ported)
+    p.add_argument("--calib_dir", default=None, help=not_ported)
+    p.add_argument("--calib_images", type=int, default=64, help=not_ported)
+    p.add_argument("--calib_stat", default="auto",
+                   choices=["auto", "absmax", "p999", "p9999"],
+                   help=not_ported)
+    p.add_argument("--calib_headroom", type=float, default=1.0,
+                   help=not_ported)
+    p.add_argument("--recalibrate", action="store_true", help=not_ported)
+    p.add_argument("--coordinator", default=None, help=not_ported)
+    p.add_argument("--num_processes", type=int, default=None, help=not_ported)
+    p.add_argument("--process_id", type=int, default=None, help=not_ported)
+
+
+def check_ported(args):
+    """Exit with a clear message on a flag the port does not have yet."""
+    if args.precision == 8:
+        raise SystemExit("--precision 8 (int8 serving) is not ported yet "
+                         "(ROADMAP.md Queue 1, 'int8 serving path')")
+    for flag, (default, item) in NOT_PORTED.items():
+        if getattr(args, flag) != default:
+            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
+                             f"Queue 1, {item!r})")
+
+
+def make_engine(args, use_pallas=False):
+    from ..checkpoint import load_checkpoint
+    from ..eval.engine import InferenceEngine
+
+    check_ported(args)
+    config, state_dict = load_checkpoint(args.checkpoint,
+                                         hparams_path=args.hparams)
+    return InferenceEngine(
+        config,
+        state_dict,
+        n_crops=args.crops,
+        dtype=torch.float32 if args.precision == 32 else torch.bfloat16,
+        search_dirs=[os.path.dirname(os.path.abspath(args.checkpoint)),
+                     args.checkpoint, os.getcwd()],
+        fast=args.fast,
+        use_pallas=use_pallas,
+        tta_fold=args.tta_fold,
+        fast_decode=args.fast_decode,
+        device="cpu" if args.cpu else "cuda",
+    )

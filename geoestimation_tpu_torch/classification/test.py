@@ -1,0 +1,61 @@
+"""Evaluation CLI of the port -- the README-style accuracy tables.
+
+    python -m geoestimation_tpu_torch.classification.test \\
+        --checkpoint DIR --image_dirs D1 [D2 ...] --meta_files M1 [M2 ...] \\
+        [--precision 16|32] [--crops 1|5|10] [--fast] [--json out.json] [--cpu]
+
+Each meta CSV has the columns IMG_ID, LAT, LON; prints GCD threshold
+accuracies at {1, 25, 200, 750, 2500} km per partitioning and for the
+hierarchical f* prediction (reference README.md:136-187). Runs on CUDA
+unless --cpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+from ._cli import add_shared_args, make_engine
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="GeoEstimation evaluation, GCD threshold accuracies "
+                    "(PyTorch/CUDA port)")
+    add_shared_args(p)
+    p.add_argument("--image_dirs", nargs="+", required=True)
+    p.add_argument("--meta_files", nargs="+", required=True)
+    p.add_argument("--json", dest="json_out", default=None,
+                   help="also dump results as JSON to this path")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if len(args.image_dirs) != len(args.meta_files):
+        raise SystemExit("--image_dirs and --meta_files must pair up "
+                         "(reference README.md:153-156)")
+    from ..data.image_folder import load_meta_csv
+    from ..eval.engine import format_accuracy_table
+
+    engine = make_engine(args)
+    all_results = {}
+    for image_dir, meta_file in zip(args.image_dirs, args.meta_files):
+        results = engine.evaluate_dir(
+            image_dir, load_meta_csv(meta_file), batch_size=args.batch_size,
+            num_workers=args.num_workers)
+        name = os.path.basename(os.path.normpath(image_dir))
+        all_results[name] = results
+        print(format_accuracy_table(results, dataset_name=name))
+        missing = results.get("_n_images_without_meta")
+        if missing:
+            print(f"  ({missing} images had no meta row; excluded)")
+    if args.json_out:
+        with open(args.json_out, "w") as f:
+            json.dump(all_results, f, indent=2)
+    return all_results
+
+
+if __name__ == "__main__":
+    main()
