@@ -78,6 +78,7 @@ class InferenceEngine:
         search_dirs: Sequence[str] = (),
         fast: bool = False,
         use_pallas: bool = False,
+        use_pallas_s2: bool = False,
         layout=None,
         tta_mode: str = "device",
         tta_fold: str = "prob_mean",
@@ -92,7 +93,10 @@ class InferenceEngine:
         fast=True folds BatchNorm into bf16 conv weights at load time
         (`models/fast_infer.py`); use_pallas additionally routes the
         stride-1 bottlenecks of layer1 and layer2 through the fused CUDA
-        kernel (its plain version on the CPU). tta_fold: how per-crop
+        kernel (its plain version on the CPU); use_pallas_s2 with it routes
+        the stride-2 stage entries whose input width is a multiple of 8
+        through the stride-2 kernel (no CLI sets it, as in the JAX package;
+        chip_smoke.py and the bench tools do). tta_fold: how per-crop
         logits combine (eval.infer.mean_tta_logits). fast_decode: scaled
         DCT JPEG decode on the host. device: 'cuda' (default) or 'cpu'.
         """
@@ -143,7 +147,8 @@ class InferenceEngine:
 
             self._fast_apply = build_fast_apply(
                 state_dict, mp.arch, n_classes=n_classes,
-                use_pallas=use_pallas, device=self.device)
+                use_pallas=use_pallas, use_pallas_s2=use_pallas_s2,
+                device=self.device)
         else:
             with torch.device("meta"):
                 model = MultiPartitioningClassifier(n_classes, mp.arch, dtype)

@@ -1,11 +1,16 @@
-"""Fused stride-1 ResNet bottleneck (inference): the CUDA kernel's wrapper,
-its plain PyTorch version, and BatchNorm folding.
+"""Fused ResNet bottlenecks (inference): the CUDA kernels' wrappers, their
+plain PyTorch versions, and BatchNorm folding.
 
-The kernel (`csrc/fused_bottleneck.cu`) replaces the Pallas TPU kernel
-`geoestimation_tpu/ops/fused_bottleneck.py::fused_bottleneck`: the whole
-block -- 1x1 conv, 3x3 conv, 1x1 conv, residual, relu -- in one pass, with
-y1 and y2 kept in shared memory. Its source says what bounds it on the H100
-and what the design does about that.
+Two kernels, each replacing a Pallas TPU kernel of
+`geoestimation_tpu/ops/fused_bottleneck.py` and computing the whole block --
+1x1 conv, 3x3 conv, 1x1 conv, residual, relu -- in one pass, with y1 and y2
+kept in shared memory:
+  * `fused_bottleneck` (`csrc/fused_bottleneck.cu`): stride 1, identity or
+    1x1 projection residual;
+  * `fused_bottleneck_s2` (`csrc/fused_bottleneck_s2.cu`): the stride-2
+    stage entry, 3x3 conv and 1x1 projection at stride 2.
+Each source says what bounds it on the H100 and what the design does about
+that.
 
 Layouts: activations NHWC; weights out-channel major with the input channels
 contiguous, which is torch's OIHW with the 1x1 taps squeezed and the 3x3
@@ -14,6 +19,7 @@ kernel as (out, dy, dx, in):
   w2 (Cmid, 3, 3, Cmid) bf16 b2 (Cmid,) f32
   w3 (Cout, Cmid) bf16       b3 (Cout,) f32
   wd (Cout, Cin) bf16        bd (Cout,) f32   (projection; None for identity)
+The stride-2 block returns (N, H/2, W/2, Cout).
 """
 
 from __future__ import annotations
@@ -91,35 +97,40 @@ def _check(x, w1, b1, w2, b2, w3, b3, wd, bd):
     return n, h, w, cin, cmid, cout
 
 
-def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, dims):
+def _launch(kernel, tensors, dims, out_hw):
+    """Launches `csrc/<kernel>.cu` on the current stream; `tensors` are x,
+    w1, b1, w2, b2, w3, b3, wd, bd (wd, bd None for the identity residual)."""
     n, h, w, cin, cmid, cout = dims
     if cin % CIN_MULTIPLE or cmid % CMID_COUT_MULTIPLE \
             or cout % CMID_COUT_MULTIPLE:
         raise ValueError(
             f"the CUDA kernel takes Cin % {CIN_MULTIPLE} == 0 and Cmid, Cout "
             f"% {CMID_COUT_MULTIPLE} == 0; got {cin}, {cmid}, {cout}")
-    tensors = [x, w1, b1, w2, b2, w3, b3] + ([wd, bd] if wd is not None
-                                             else [])
-    if any(t.data_ptr() % 16 for t in tensors):
+    if any(t is not None and t.data_ptr() % 16 for t in tensors):
         raise ValueError("the CUDA kernel needs 16-byte aligned tensors")
-    lib = _build.load("fused_bottleneck")
-    fn = lib.geo_fused_bottleneck
+    fn = getattr(_build.load(kernel), f"geo_{kernel}")
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    x = tensors[0]
+    out = torch.empty((n, *out_hw, cout), dtype=torch.bfloat16,
+                      device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-                 b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-                 None if wd is None else wd.data_ptr(),
-                 None if bd is None else bd.data_ptr(), out.data_ptr(),
-                 n, h, w, cin, cmid, cout, stream)
+        err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+                 out.data_ptr(), n, h, w, cin, cmid, cout, stream)
     if err:
-        raise RuntimeError(f"fused_bottleneck CUDA kernel failed to launch: "
+        raise RuntimeError(f"{kernel} CUDA kernel failed to launch: "
                            f"cudaError {err}")
-    fused_bottleneck.launches += 1
     return out
+
+
+def _on_cpu(x, name):
+    """True for a CPU `x` (the plain version runs), False for a CUDA one
+    (the kernel launches); any other device raises."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cuda or cpu, not {x.device}")
+    return x.device.type == "cpu"
 
 
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
@@ -129,13 +140,63 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
     `fused_bottleneck.launches`); a CPU `x` runs the plain version. Anything
     the kernel does not take raises. Returns (N, H, W, Cout) bf16.
     """
-    dims = _check(x, w1, b1, w2, b2, w3, b3, wd, bd)
-    if x.device.type == "cpu":
-        return fused_bottleneck_reference(x, w1, b1, w2, b2, w3, b3, wd, bd)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_bottleneck runs on cuda or cpu, not "
-                         f"{x.device}")
-    return _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, dims)
+    args = (x, w1, b1, w2, b2, w3, b3, wd, bd)
+    dims = _check(*args)
+    if _on_cpu(x, "fused_bottleneck"):
+        return fused_bottleneck_reference(*args)
+    out = _launch("fused_bottleneck", args, dims, dims[1:3])
+    fused_bottleneck.launches += 1
+    return out
 
 
 fused_bottleneck.launches = 0
+
+
+def fused_bottleneck_s2_reference(x, w1, b1, w2, b2, w3, b3, wd, bd):
+    """Plain PyTorch version of the stride-2 kernel: the same products in
+    float32 on the bf16 values, the taps summed in the Pallas kernel's order
+    (dy, then dx), rounded to bf16 at the same points (y1, y2, out)."""
+    h2, w2_ = x.shape[1] // 2, x.shape[2] // 2
+    xf = x.float()
+    y1 = torch.relu(xf @ w1.float().t() + b1).to(torch.bfloat16)
+    # zero row and column -1; for even H and W the far edges are never read
+    y1p = torch.nn.functional.pad(y1.float(), (0, 0, 1, 0, 1, 0))
+    w2f = w2.float()
+    acc = torch.zeros((x.shape[0], h2, w2_, w2.shape[0]), dtype=torch.float32,
+                      device=x.device)
+    for dy in range(3):
+        for dx in range(3):
+            acc += (y1p[:, dy:dy + 2 * h2:2, dx:dx + 2 * w2_:2, :]
+                    @ w2f[:, dy, dx, :].t())
+    y2 = torch.relu(acc + b2).to(torch.bfloat16)
+    y3 = y2.float() @ w3.float().t() + b3
+    res = xf[:, ::2, ::2, :] @ wd.float().t() + bd
+    return torch.relu(y3 + res).to(torch.bfloat16)
+
+
+def fused_bottleneck_s2(x, w1, b1, w2, b2, w3, b3, wd, bd):
+    """The stride-2 stage-entry block: relu(conv3(relu(conv2_s2(relu(
+    conv1(x))))) + proj_s2(x)), with the 3x3 conv and the 1x1 projection at
+    stride 2. The projection (wd, bd) is required; H and W must be even.
+
+    A CUDA `x` launches the kernel on the current stream (and counts it in
+    `fused_bottleneck_s2.launches`); a CPU `x` runs the plain version.
+    Anything the kernel does not take raises. Returns (N, H/2, W/2, Cout)
+    bf16.
+    """
+    if wd is None or bd is None:
+        raise ValueError("the stride-2 block needs its projection: wd and bd "
+                         "are required")
+    args = (x, w1, b1, w2, b2, w3, b3, wd, bd)
+    dims = _check(*args)
+    n, h, w = dims[:3]
+    if h % 2 or w % 2:
+        raise ValueError(f"the stride-2 block needs even H and W; got {h}x{w}")
+    if _on_cpu(x, "fused_bottleneck_s2"):
+        return fused_bottleneck_s2_reference(*args)
+    out = _launch("fused_bottleneck_s2", args, dims, (h // 2, w // 2))
+    fused_bottleneck_s2.launches += 1
+    return out
+
+
+fused_bottleneck_s2.launches = 0

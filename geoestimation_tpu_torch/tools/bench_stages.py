@@ -1,0 +1,88 @@
+"""Per-stage timing of the fast path by cumulative prefixes, on the card.
+
+    python -m geoestimation_tpu_torch.tools.bench_stages [variant ...]
+
+The counterpart of the JAX package's `tools/bench_stages.py`. On the seeded
+full-width world (`tools/world.py`) at batch 64 (640 crops) it times the
+prefixes ingest, +stem, +layer1, ..., +layer4 and the whole forward through
+the head, over `apply.stage_fns` and `apply.head_logits`, with CUDA events
+(median of 10 after 3 warm-up calls), and prints each prefix's time and its
+delta over the one before: the cost of each stage in context. PyTorch runs
+eagerly, so unlike XLA nothing is fused across a cut point and the deltas
+are the stages' own times.
+
+Variants (build_fast_apply keywords as `bench_kernels`' e2e): noPallas, L1,
+L2, L1L2, L1L2-s2 (default: all). It runs on a CUDA card only and raises
+without one.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+
+import numpy as np
+import torch
+
+from ..ingest.pipeline import eval_pipeline
+from ..models.fast_infer import build_fast_apply
+from . import world
+from .bench_kernels import FAST_VARIANTS
+from .card import card_label, require_cuda, time_ms
+
+VARIANTS = {name.removeprefix("fast-"): kw
+            for name, kw in FAST_VARIANTS.items()}
+PREFIXES = ("ingest", "stem", "layer1", "layer2", "layer3", "layer4", "head")
+
+
+def stage_prefix(apply, k, n_crops=10):
+    """uint8 images -> the output of ingest and the first k stage functions;
+    past the last stage, the head's logits."""
+    stage_fns = apply.stage_fns
+
+    @torch.inference_mode()
+    def run(images_u8):
+        x = eval_pipeline(images_u8, n_crops=n_crops, crop=224,
+                          dtype=torch.bfloat16)
+        for fn in stage_fns[:k]:
+            x = fn(x)
+        return apply.head_logits(x) if k > len(stage_fns) else x
+
+    return run
+
+
+def bench_variant(name, sd, images, label, reps=10):
+    apply = build_fast_apply(sd, world.ARCH, n_classes=world.REAL_CLASS_COUNTS,
+                             device="cuda", **VARIANTS[name])
+    prev = 0.0
+    for k, stage in enumerate(PREFIXES):
+        run = stage_prefix(apply, k)
+        ms = time_ms(lambda: run(images), reps=reps)
+        print("bench_stages " + json.dumps({
+            "variant": name, "prefix": stage, "cum_ms": ms,
+            "delta_ms": ms - prev, "batch": len(images), "card": label}),
+            flush=True)
+        prev = ms
+
+
+def main(argv=None):
+    which = list(sys.argv[1:] if argv is None else argv) or list(VARIANTS)
+    unknown = [v for v in which if v not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"unknown variant(s) {unknown}; have "
+                         f"{list(VARIANTS)}")
+    require_cuda("bench_stages")
+    label = card_label()
+    print(f"card: {label}; torch {torch.__version__} cuda "
+          f"{torch.version.cuda}", flush=True)
+    _, sd, _ = world.build_world()
+    rng = np.random.default_rng(world.SEED)
+    images = torch.as_tensor(
+        rng.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8),
+        device="cuda")
+    for name in which:
+        bench_variant(name, sd, images, label)
+
+
+if __name__ == "__main__":
+    main()

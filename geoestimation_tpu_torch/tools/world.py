@@ -1,0 +1,114 @@
+"""The seeded full-width world that `chip_smoke.py` and the bench tools share.
+
+`build_world()` gives a ResNet50 classifier at full width with three heads
+at the published class counts 3298/7202/12893 (coarse/middle/fine), random
+weights made from a seed in the JAX package's tree layout and passed through
+the weights bridge (`convert.from_jax_variables`), and three nested S2
+partitionings at those counts. Needs no data and no network.
+
+`forward(apply, harrays)` is the engine's own device pipeline around any
+`apply`: eval_pipeline -> apply -> mean_tta_logits -> predict_all.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..convert import from_jax_variables
+from ..eval.infer import mean_tta_logits, predict_all
+from ..geo import Partitioning, s2
+from ..ingest.pipeline import eval_pipeline
+from ..models.resnet import FEATURE_DIM, STAGE_SIZES
+from ..utils.config import Config
+
+SEED = 0
+ARCH = "resnet50"
+REAL_CLASS_COUNTS = (3298, 7202, 12893)   # coarse/middle/fine, published
+
+
+def seeded_partitionings(rng, counts=REAL_CLASS_COUNTS):
+    """Three nested S2 partitionings at the published class counts: coarse
+    level-6 cells under random points, then children of chosen cells, so
+    every fine cell has an ancestor in each coarser partitioning."""
+    n = 4 * counts[0] * 3
+    lat = np.degrees(np.arcsin(rng.uniform(-1, 1, n)))
+    lng = rng.uniform(-180, 180, n)
+    ids = rng.choice(np.unique(s2.cell_id_at_level(lat, lng, 6)), counts[0],
+                     replace=False)
+    parts = []
+    for name, k in zip(("coarse", "middle", "fine"), counts):
+        if parts:
+            ids = rng.choice(s2.children(parts[-1].cell_ids).ravel(), k,
+                             replace=False)
+        clat, clng = s2.cell_id_to_latlng(ids)
+        parts.append(Partitioning(name=name, tokens=s2.id_to_token(ids),
+                                  lat=clat, lng=clng,
+                                  counts=np.zeros(k, np.int64)))
+    return parts
+
+
+def seeded_jax_variables(rng, arch, n_classes):
+    """Random weights in the JAX package's tree layout (numpy): He-normal
+    HWIO kernels, BatchNorm with unit-scale statistics and small residual
+    scales (bn3) so 16 blocks stay in range."""
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def conv(k, cin, cout):
+        return {"kernel": normal((k, k, cin, cout), (2.0 / (k * k * cin)) ** .5)}
+
+    def bn(c, lo=0.5, hi=1.0):
+        return ({"scale": rng.uniform(lo, hi, c).astype(np.float32),
+                 "bias": normal((c,), 0.1)},
+                {"mean": normal((c,), 0.1),
+                 "var": rng.uniform(0.5, 1.5, c).astype(np.float32)})
+
+    params, stats = {"conv1": conv(7, 3, 64)}, {}
+    params["bn1"], stats["bn1"] = bn(64)
+    cin = 64
+    for stage, n_blocks in enumerate(STAGE_SIZES[arch]):
+        mid = 64 * 2 ** stage
+        for b in range(n_blocks):
+            name = f"layer{stage + 1}_block{b}"
+            p = {"conv1": conv(1, cin, mid), "conv2": conv(3, mid, mid),
+                 "conv3": conv(1, mid, 4 * mid)}
+            s = {}
+            p["bn1"], s["bn1"] = bn(mid)
+            p["bn2"], s["bn2"] = bn(mid)
+            p["bn3"], s["bn3"] = bn(4 * mid, 0.1, 0.3)
+            if b == 0:
+                p["downsample_conv"] = conv(1, cin, 4 * mid)
+                p["downsample_bn"], s["downsample_bn"] = bn(4 * mid)
+            params[name], stats[name] = p, s
+            cin = 4 * mid
+    head = {"kernel": normal((FEATURE_DIM, sum(n_classes)),
+                             FEATURE_DIM ** -0.5),
+            "bias": normal((sum(n_classes),), 0.1)}
+    return ({"backbone": params, "heads": {"fused_head": head}},
+            {"backbone": stats})
+
+
+def build_world(seed=SEED, arch=ARCH, counts=REAL_CLASS_COUNTS):
+    """(config, state_dict, partitionings) made from `seed`; the weights go
+    through the weights bridge from the JAX layout."""
+    rng = np.random.default_rng(seed)
+    parts = seeded_partitionings(rng, counts)
+    params, stats = seeded_jax_variables(rng, arch, counts)
+    config = Config()
+    config.model_params.arch = arch
+    return config, from_jax_variables(params, stats, arch, counts), parts
+
+
+def forward(apply, harrays, n_crops=10, crop=224, fold="prob_mean"):
+    """uint8 (B, base, base, 3) device tensor -> {p_key: (cls, lat, lng)}
+    through `apply`, as `InferenceEngine` runs its fast path."""
+    @torch.inference_mode()
+    def run(images_u8):
+        x = eval_pipeline(images_u8, n_crops=n_crops, crop=crop,
+                          dtype=torch.bfloat16)
+        logits = [mean_tta_logits(l, n_crops, fold=fold) for l in apply(x)]
+        return predict_all(logits, harrays)
+
+    return run

@@ -65,3 +65,30 @@ def test_kernel_refuses_widths_it_does_not_take(cuda):
     args = block_args(1, 8, 8, 64, 32, 64, False, device=cuda)
     with pytest.raises(ValueError, match="CUDA kernel takes"):
         port_fb.fused_bottleneck(*args)
+
+
+@pytest.mark.parametrize("shape", [
+    (4, 56, 56, 256, 128, 512),    # layer2.0
+    (4, 28, 28, 512, 256, 1024),   # layer3.0 (the bench's layer3entry)
+    (3, 14, 10, 64, 64, 256),      # 7 output rows against 4-row tiles, W/2 odd
+])
+def test_s2_kernel_matches_plain(cuda, shape):
+    args = block_args(*shape, proj=True, device=cuda)
+    before = port_fb.fused_bottleneck_s2.launches
+    got = port_fb.fused_bottleneck_s2(*args)
+    torch.cuda.synchronize()
+    assert port_fb.fused_bottleneck_s2.launches == before + 1
+    n, h, w = shape[:3]
+    assert got.shape == (n, h // 2, w // 2, shape[-1])
+    ref = port_fb.fused_bottleneck_s2_reference(*args)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0.05,
+                               atol=0.05)
+    assert (got == ref).float().mean() > 0.9
+
+
+def test_s2_kernel_refuses_widths_it_does_not_take(cuda):
+    args = block_args(1, 8, 8, 64, 32, 128, True, device=cuda)
+    before = port_fb.fused_bottleneck_s2.launches
+    with pytest.raises(ValueError, match="CUDA kernel takes"):
+        port_fb.fused_bottleneck_s2(*args)
+    assert port_fb.fused_bottleneck_s2.launches == before

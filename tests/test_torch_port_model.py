@@ -170,3 +170,155 @@ def test_fast_path_matches_module_path(jax_vars, images):
         for g, r in zip(apply(x), model(x)):
             torch.testing.assert_close(g, r, rtol=0.15, atol=0.2)
             assert torch.equal(g.argmax(-1), r.argmax(-1))
+
+
+def _counting(calls, fn, **extra):
+    """`fn` that first records the NHWC shape of its input in `calls`."""
+    def wrapper(x, *args, **kwargs):
+        calls.append(tuple(x.shape))
+        return fn(x, *args, **{**kwargs, **extra})
+    return wrapper
+
+
+def test_fast_path_with_both_kernels_matches_jax_pallas(jax_vars, images,
+                                                        monkeypatch):
+    """use_pallas_s2: the port (plain versions on the CPU) against the JAX
+    fast path with both Pallas kernels in interpret mode. At 64 px the stage
+    entries of layer2 (16 wide) and layer3 (8 wide) take the stride-2
+    kernel on both sides; layer4's (4 wide) stays on the convolutions."""
+    jfb = importlib.import_module("geoestimation_tpu.ops.fused_bottleneck")
+    jax_s2, port_s2 = [], []
+    monkeypatch.setattr(
+        "geoestimation_tpu.models.fast_infer.fused_bottleneck",
+        lambda *a, **k: jfb.fused_bottleneck(*a, **{**k, "interpret": True}))
+    monkeypatch.setattr(
+        "geoestimation_tpu.models.fast_infer.fused_bottleneck_s2",
+        _counting(jax_s2, jfb.fused_bottleneck_s2, interpret=True))
+    ref = build_fast_apply(jax_vars, ARCH, n_classes=N_CLASSES,
+                           use_pallas=True,
+                           use_pallas_s2=True)(jnp.asarray(images))
+    monkeypatch.setattr(port_fast, "fused_bottleneck_s2",
+                        _counting(port_s2, port_fast.fused_bottleneck_s2))
+    _, sd = port_model(jax_vars, torch.bfloat16)
+    apply = port_fast.build_fast_apply(sd, ARCH, n_classes=N_CLASSES,
+                                       use_pallas=True, use_pallas_s2=True,
+                                       device="cpu")
+    with torch.inference_mode():
+        got = apply(torch.from_numpy(images))
+    assert jax_s2 == port_s2 == [(2, 16, 16, 256), (2, 8, 8, 512)]
+    for g, r in zip(got, ref):
+        g, r = g.numpy(), np.asarray(r)
+        np.testing.assert_allclose(g, r, rtol=0.15, atol=0.2)
+        np.testing.assert_array_equal(g.argmax(-1), r.argmax(-1))
+
+
+def test_stage_fns_and_head_reproduce_apply(jax_vars, images):
+    _, sd = port_model(jax_vars, torch.bfloat16)
+    apply = port_fast.build_fast_apply(sd, ARCH, n_classes=N_CLASSES,
+                                       use_pallas=True, use_pallas_s2=True,
+                                       device="cpu")
+    assert len(apply.stage_fns) == 5   # stem, layer1..4
+    x = torch.from_numpy(images)
+    with torch.inference_mode():
+        want = apply(x)
+        for fn in apply.stage_fns:
+            x = fn(x)
+        got = apply.head_logits(x)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+# -- routing at ResNet50, 224 px --------------------------------------------
+
+R50_CLASSES = (5, 7, 11)
+
+
+@pytest.fixture(scope="module")
+def r50_weights():
+    """Seeded full-width ResNet50 weights: the JAX tree and the port's
+    state dict."""
+    from geoestimation_tpu_torch.tools.world import seeded_jax_variables
+
+    params, stats = seeded_jax_variables(np.random.default_rng(0),
+                                         "resnet50", R50_CLASSES)
+    return ({"params": params, "batch_stats": stats},
+            from_jax_variables(params, stats, "resnet50", R50_CLASSES))
+
+
+def _jax_routes(monkeypatch, calls):
+    """Replaces the JAX fast path's block functions by recorders that give
+    zeros of the block's output shape: (route, NHWC input at its logical
+    width) per block."""
+    def pallas(x, fb, npi, stride=1, logical_w=None):
+        b, h, w, c = x.shape
+        calls.append(("fused" if stride == 1 else "fused_s2",
+                      (b, h, logical_w or w, c)))
+        hw = (h, w) if stride == 1 else (h // 2, w // 2)
+        return jnp.zeros((b, *hw, fb["conv3"][0].shape[-1]), jnp.bfloat16)
+
+    def xla(x, fb, stride, mirror=False):
+        b, h, w, c = x.shape
+        calls.append(("conv", (b, h, w, c)))
+        return jnp.zeros((b, h // stride, w // stride,
+                          fb["conv3"][0].shape[-1]), jnp.bfloat16)
+
+    monkeypatch.setattr("geoestimation_tpu.models.fast_infer._pallas_block",
+                        pallas)
+    monkeypatch.setattr("geoestimation_tpu.models.fast_infer._xla_block", xla)
+
+
+def _port_routes(monkeypatch, calls):
+    """The same recorders around the port's kernel wrappers (NHWC in) and
+    its convolution block (NCHW channels-last in)."""
+    def kernel(route, stride):
+        def rec(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None):
+            b, h, w, _ = x.shape
+            calls.append((route, tuple(x.shape)))
+            return torch.zeros((b, h // stride, w // stride, w3.shape[0]),
+                               dtype=torch.bfloat16)
+        return rec
+
+    def conv(x, weights, stride):
+        b, c, h, w = x.shape
+        calls.append(("conv", (b, h, w, c)))
+        out = torch.zeros((b, weights[2][0].shape[0], h // stride,
+                           w // stride), dtype=torch.bfloat16)
+        return out.contiguous(memory_format=torch.channels_last)
+
+    monkeypatch.setattr(port_fast, "fused_bottleneck", kernel("fused", 1))
+    monkeypatch.setattr(port_fast, "fused_bottleneck_s2",
+                        kernel("fused_s2", 2))
+    monkeypatch.setattr(port_fast, "_conv_block", conv)
+
+
+@pytest.mark.parametrize("batch,kw,n_fused,n_s2", [
+    (2, dict(use_pallas=True), 6, 0),                          # default
+    (2, dict(use_pallas=True, use_pallas_s2=True), 6, 1),
+    (1, dict(use_pallas=True, use_pallas_s2=True), 3, 1),      # odd batch
+    (2, dict(use_pallas=True, use_pallas_s2=True,
+             pallas_stages={}), 0, 1),
+    (2, dict(use_pallas=False, use_pallas_s2=True), 0, 0),
+])
+def test_routing_matches_jax_at_resnet50(r50_weights, monkeypatch, batch, kw,
+                                         n_fused, n_s2):
+    """The port sends the same blocks to the same functions as the JAX
+    package, decided on the activation's shape: a stage entry takes the
+    stride-2 kernel only when its input width is a multiple of 8 (at
+    224 px, layer2.0 alone), layer2's stride-1 blocks only when the batch
+    divides by their images-per-tile (2), and `pallas_stages={}` sends no
+    stride-1 block to the kernel."""
+    jax_vars, sd = r50_weights
+    images = np.zeros((batch, 224, 224, 3), np.float32)
+    want, got = [], []
+    _jax_routes(monkeypatch, want)
+    build_fast_apply(jax_vars, "resnet50", n_classes=R50_CLASSES,
+                     **kw)(jnp.asarray(images))
+    _port_routes(monkeypatch, got)
+    with torch.inference_mode():
+        port_fast.build_fast_apply(sd, "resnet50", n_classes=R50_CLASSES,
+                                   device="cpu",
+                                   **kw)(torch.from_numpy(images))
+    assert got == want and len(got) == 16
+    assert [r for r, _ in got].count("fused") == n_fused
+    s2 = [shape for r, shape in got if r == "fused_s2"]
+    assert s2 == [(batch, 56, 56, 256)] * n_s2

@@ -140,3 +140,57 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         args[8] = None
     with pytest.raises((TypeError, ValueError)):
         port_fb.fused_bottleneck(*args)
+
+
+def make_weights_s2(cin, cmid, cout):
+    """As tests/test_fused_block.py's TestStride2: the projection is
+    required."""
+    w1, b1, w2, b2, _, b3, _, _ = make_weights(cin, cmid, cout, False)
+    w3 = RNG.normal(0, 0.05, (cmid, cout)).astype(np.float32)
+    wd = RNG.normal(0, 0.05, (cin, cout)).astype(np.float32)
+    bd = RNG.normal(0, 0.1, (cout,)).astype(np.float32)
+    return w1, b1, w2, b2, w3, b3, wd, bd
+
+
+@pytest.mark.parametrize("shape,npi", [
+    ((2, 16, 16, 64), 1),     # layer2_block0-like
+    ((4, 8, 8, 128), 2),
+])
+def test_s2_plain_matches_pallas_and_xla(shape, npi):
+    cin = shape[-1]
+    ws = make_weights_s2(cin, cin // 2, cin * 2)
+    x = RNG.normal(0, 1, shape).astype(np.float32)
+
+    got = port_fb.fused_bottleneck_s2(*port_args(x, *ws))
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == (shape[0], shape[1] // 2, shape[2] // 2,
+                                cin * 2)
+    got = got.float().numpy()
+    assert_bf16_close(got, jax_fb.xla_bottleneck_reference(
+        jnp.asarray(x), *ws, stride=2))
+    assert_bf16_close(got, jax_fb.fused_bottleneck_s2(
+        jnp.asarray(x), *ws, images_per_tile=npi, interpret=True))
+
+
+def test_s2_plain_takes_widths_the_pallas_kernel_refuses():
+    """W = 10 is not a multiple of 8 (a TPU tiling rule the Hopper kernel
+    does not have): held against the XLA reference alone."""
+    ws = make_weights_s2(64, 32, 128)
+    x = RNG.normal(0, 1, (2, 12, 10, 64)).astype(np.float32)
+    got = port_fb.fused_bottleneck_s2(*port_args(x, *ws))
+    assert tuple(got.shape) == (2, 6, 5, 128)
+    assert_bf16_close(got.float().numpy(), jax_fb.xla_bottleneck_reference(
+        jnp.asarray(x), *ws, stride=2))
+
+
+@pytest.mark.parametrize("bad", ["odd_h", "odd_w", "no_wd", "no_bd"])
+def test_s2_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    h, w = {"odd_h": (9, 16), "odd_w": (8, 7)}.get(bad, (8, 8))
+    args = port_args(RNG.normal(0, 1, (1, h, w, 64)).astype(np.float32),
+                     *make_weights_s2(64, 32, 128))
+    if bad == "no_wd":
+        args[7] = None
+    elif bad == "no_bd":
+        args[8] = None
+    with pytest.raises(ValueError, match="even H and W|required"):
+        port_fb.fused_bottleneck_s2(*args)
