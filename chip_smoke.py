@@ -7,8 +7,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      versions, and the build of every CUDA kernel from csrc/ (one nvcc per
      source, all started together; timed);
   2. every kernel against its plain PyTorch version on the card, in bf16, at
-     the shapes the main paths give it and at a ragged shape, with its time,
-     its plain version's, the cuDNN chain's and its bound;
+     the shapes the main paths give it and at the edges of its tiling, with
+     its time, its plain version's, the cuDNN chain's and its bound, and what
+     its planner chose (shared memory, blocks per SM, TH, TW, ring stages);
   3. the main path: ten-crop bf16 ResNet50 inference at full width (three
      heads at 3298/7202/12893 classes, random weights from a seed) through
      `InferenceEngine.predict_batch` with the BN-folded fast path and the
@@ -49,13 +50,24 @@ from geoestimation_tpu_torch.tools.card import (
 
 # (label, N, H, W, Cin, Cmid, Cout, projection, launches per forward) of
 # each kernel: the blocks of ResNet50 at 224 px that the main paths send to
-# it, N = 8 images x 10 crops, and a ragged shape.
+# it, N = 8 images x 10 crops, and the edges of each kernel's tiling.
 SHAPES = {
     "fused_bottleneck": [
         ("layer1.0 56x56 64-64-256 proj", 80, 56, 56, 64, 64, 256, True, 1),
         ("layer1.1-2 56x56 256-64-256", 80, 56, 56, 256, 64, 256, False, 2),
         ("layer2.1-3 28x28 512-128-512", 80, 28, 28, 512, 128, 512, False, 3),
         ("ragged 13x11 64-64-256 proj", 3, 13, 11, 64, 64, 256, True, 0),
+        # the edges of the Hopper tiling: K slices partly outside Cin, one
+        # image, rows that do not fill a 64-row tile, the layer3 shape
+        ("Cin 16 8x8 16-64-128 proj", 2, 8, 8, 16, 64, 128, True, 0),
+        ("Cin 48 9x12 48-64-64 proj", 2, 9, 12, 48, 64, 64, True, 0),
+        ("N 1 7x7 256-64-256", 1, 7, 7, 256, 64, 256, False, 0),
+        ("W 13 6x13 128-128-128", 2, 6, 13, 128, 128, 128, False, 0),
+        ("layer3.1-5 14x14 1024-256-1024", 80, 14, 14, 1024, 256, 1024, False,
+         0),
+        # rows too wide for whole-row tiles: one row by column tiles
+        ("wide 3x402 64-64-256 proj", 1, 3, 402, 64, 64, 256, True, 0),
+        ("wide 3x700 64-64-64 proj", 1, 3, 700, 64, 64, 64, True, 0),
     ],
     "fused_bottleneck_s2": [
         ("layer2.0 56x56 256-128-512", 80, 56, 56, 256, 128, 512, True, 1),
@@ -63,6 +75,12 @@ SHAPES = {
         ("layer3.0 28x28 512-256-1024", 80, 28, 28, 512, 256, 1024, True, 0),
         # 7 output rows against 4-row tiles, odd output width
         ("ragged 14x10 64-64-256", 3, 14, 10, 64, 64, 256, True, 0),
+        ("Cin 48 10x12 48-64-128", 2, 10, 12, 48, 64, 128, True, 0),
+        ("layer3.0 at 448 px 56x56 512-256-1024", 2, 56, 56, 512, 256, 1024,
+         True, 0),
+        # rows too wide for whole-row tiles: one row by column tiles
+        ("wide 4x482 64-64-256", 1, 4, 482, 64, 64, 256, True, 0),
+        ("wide 4x1200 64-64-128", 1, 4, 1200, 64, 64, 128, True, 0),
     ],
 }
 STRIDE = {"fused_bottleneck": 1, "fused_bottleneck_s2": 2}
@@ -92,9 +110,17 @@ def phase_device():
     log(f"kernel build: {time.perf_counter() - t0:.1f} s for "
         f"{_build.sources()}")
     for name, report in reports.items():
+        # C7519: ptxas put a warpgroup.arrive (a wait for the wgmma in
+        # flight) where registers a wgmma uses are touched between products
+        arrives = [line for line in report.splitlines() if "C7519" in line]
         for line in report.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
+            if "C7519" not in line and (
+                    ("Used" in line and "registers" in line)
+                    or "spill" in line or "error" in line):
                 log(f"  ptxas {name}: {line.strip()}")
+        log(f"  ptxas {name}: {len(arrives)} x C7519 (warpgroup.arrive "
+            f"injected to allow use of registers in GMMA)"
+            + (f"; first: {arrives[0].strip()}" if arrives else ""))
     return label
 
 
@@ -131,8 +157,9 @@ def check_kernel(name, label, gen):
         plain_ms = time_ms(lambda: plain(*args))
         lib_ms = time_ms(cudnn_chain(args, stride))
         bound, bound_by = bound_ms(flops, nbytes)
+        plan = ops.kernel_plan(name, n, h, w, cin, cmid, cout, proj)
         log("kernel-check " + json.dumps({
-            "kernel": name, "shape": label_, "N": n, "max_abs_err": err,
+            "kernel": name, "shape": label_, "N": n, **plan, "max_abs_err": err,
             "bitwise_equal": bitwise, "kernel_ms": ms, "bound_ms": bound,
             "bound_by": bound_by, "plain_ms": plain_ms, "library_ms": lib_ms,
             "launches_per_forward": per_fwd, "card": label}))

@@ -9,6 +9,7 @@
 //   y3  = f32(y2 . w3) + b3                                  1x1 conv, not rounded
 //   res = f32(x . wd) + bd   or   f32(x)                     projection or identity
 //   out = bf16(relu(y3 + res))
+// (with a projection, y2 . w3 and x . wd share one fp32 accumulator.)
 //
 // What bounds it on an H100 (989 TFLOP/s bf16, 3.35 TB/s), counting each
 // input byte read once and each output byte written once, at the three shapes
@@ -16,257 +17,272 @@
 //   56x56, 64 -> 64 -> 256 with projection: 37.0 GFLOP = 37 us; 161 MB = 48 us
 //   56x56, 256 -> 64 -> 256 identity:        34.9 GFLOP = 35 us; 257 MB = 77 us
 //   28x28, 512 -> 128 -> 512 identity:       34.9 GFLOP = 35 us; 129 MB = 38 us
-// so the first two are bound by bytes and the third sits at the ridge. An
-// unfused block also writes and reads back y1 and y2 (128 MB a block at the
-// 56x56 shapes, 64 MB at 28x28) and launches three or four kernels.
+// so the first two are bound by bytes and the third sits at the ridge.
 //
-// What the design does about it: one CUDA block owns one image and a tile of
-// TH output rows. It computes y1 for rows [r0-1, r0+TH] into shared memory
-// (halo rows recomputed from the block's own image, zero outside the image,
-// two zero border columns), then the 3x3 conv into a y2 tile in shared memory,
-// then conv3, the residual and relu straight to the output. x is read from
-// device memory for conv1 and the residual, the output written once, and y1
-// and y2 never leave the SM. The products run on the tensor cores through
-// mma.sync m16n8k16 (bf16 in, fp32 accumulate); the A fragments come from
-// shared memory (y1, y2) or from x, the B fragments from the weights in L2.
-// Each warp owns a 16-pixel by 64-channel tile of a product at a time. No
-// TMA, wgmma or pipelining yet: this kernel is the simple correct version.
+// What the design does about it (the core is bottleneck_sm90.cuh): a work
+// item is one image and TH output rows; a persistent grid walks the items.
+// Phase 1 computes y1 for image rows [r0 - 1, r0 + TH] (halo rows recomputed,
+// zero outside the image) from x tiles of 64 consecutive pixels: the rows
+// [r0 - 1, r0 + TH] of an NHWC image are one run of pixels, so a 2-D tensor
+// map (Cin, N*H*W) gives them, and the pixels it fetches outside the image
+// only feed rows that are forced to zero. y1 lands in one plane of
+// (TH + 2) x (W + 2) pixels with two zero border columns; phase 2 runs the
+// 3x3 conv over the plane's padded pixel coordinates, tap (dy, dx) being the
+// same A tile shifted by dy (W + 2) + dx pixels, into y2 (TH x W pixels);
+// phase 3 runs conv3 (and the projection, from x tiles of the TH output rows)
+// and writes relu(y3 + res) to the output. Weights stream through the ring
+// by TMA once per pass, so one slice serves every m-tile of the pass. Where
+// rows are too wide for even one whole row's tiles, a work item is one
+// output row and TW output columns: phase 1 then loads each of its three
+// y1 rows (TW + 2 pixels from column c0 - 1) as tiles of its own, and the
+// columns outside the image are zero like the rows.
+//
+// Shared memory: y1 = (TH + 2)(TW + 2) Cmid 2 B, y2 = TH TW Cmid 2 B (TW = W
+// but for column tiles), and a ring of stages of (x tiles + weight slice).
+// The planner (plan_cost, search_plan) picks TH, TW, each phase's split and
+// the ring to minimise a count of 64x64x16 products per SM; at N = 640 it
+// gives one block of 288 threads per SM and
+//   56x56 64-64-256 proj:  TH 4, 2 stages, 205,824 B
+//   56x56 256-64-256:      TH 4, 3 stages, 222,208 B
+//   28x28 512-128-512:     TH 4, 2 stages, 190,464 B
+// (geo_fused_bottleneck_plan reports it for any shape; chip_smoke.py prints
+// it on each kernel-check line).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bottleneck_sm90.cuh"
+
+using namespace geo_sm90;
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;            // output channels of one warp work item
-constexpr int kNT = kChunk / 8;       // mma n-tiles per work item
-constexpr int kPad = 8;               // bf16 padding per shared-memory pixel
-constexpr int kRowsPerTile = 4;       // TH, lowered only if shared memory runs out
-constexpr size_t kMaxSmem = 227 * 1024;
-
 struct Params {
   const __nv_bfloat16* x;   // (N, H, W, Cin)
-  const __nv_bfloat16* w1;  // (Cmid, Cin)
   const float* b1;          // (Cmid)
-  const __nv_bfloat16* w2;  // (Cmid, 3, 3, Cmid): out, dy, dx, in
   const float* b2;          // (Cmid)
-  const __nv_bfloat16* w3;  // (Cout, Cmid)
   const float* b3;          // (Cout)
-  const __nv_bfloat16* wd;  // (Cout, Cin), projection only
   const float* bd;          // (Cout), projection only
   __nv_bfloat16* out;       // (N, H, W, Cout)
-  int h, w, cin, cmid, cout, th;
+  int h, w, cin, cmid, cout;
 };
 
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two neighbouring bf16 values as one 32-bit word, lower address in the low half.
-__device__ __forceinline__ uint32_t ldg32(const __nv_bfloat16* p) {
-  return __ldg(reinterpret_cast<const unsigned int*>(p));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ float2 ldg_f2(const float* p) {
-  return __ldg(reinterpret_cast<const float2*>(p));
-}
-
-// One k-step of a 16 x 64 tile: A fragment given, B rows from a (N, K) matrix
-// with K contiguous, `ld` elements apart, starting at channel n0 and depth k.
-__device__ __forceinline__ void mma_chunk(float acc[kNT][4], const uint32_t a[4],
-                                          const __nv_bfloat16* b, size_t ld,
-                                          int n0, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const __nv_bfloat16* row = b + (size_t)(n0 + j * 8 + g) * ld + 2 * t;
-    mma_bf16(acc[j], a, ldg32(row), ldg32(row + 8));
-  }
-}
-
 template <bool kProj>
-__global__ void __launch_bounds__(kThreads)
-fused_bottleneck_kernel(const Params p) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int img = blockIdx.y;
-  const int r0 = blockIdx.x * p.th;
-  const int H = p.h, W = p.w, wp = p.w + 2;
-  const int ldm = p.cmid + kPad;
-  // y1 tile: (TH + 2, W + 2, ldm); y2 tile: (TH * W, ldm)
-  __nv_bfloat16* y1s = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* y2s = y1s + (size_t)(p.th + 2) * wp * ldm;
+__global__ void __launch_bounds__(kThreads, 1)
+fused_bottleneck_kernel(const __grid_constant__ TmaMaps maps, const __grid_constant__ Params p,
+                        const __grid_constant__ Plan pl) {
+  extern __shared__ unsigned char dyn[];
+  __shared__ __align__(8) uint64_t bars[2 * kMaxStages];
+  const Smem sm = setup_block(dyn, bars, pl);
+  const int H = p.h, W = p.w, P = pl.pitch, TH = pl.th, TW = pl.tw;
+  // warp-uniform to the compiler too (a broadcast), so that the roles'
+  // branches and the warpgroups' passes do not count as divergent
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0), lane = threadIdx.x & 31;
+  const int nk = pl.cmid_slices;
+  Ring ring;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* ximg = p.x + (size_t)img * H * W * p.cin;
-
-  // Zero the left and right border columns of every y1 row.
-  {
-    const int words = p.cmid / 2;
-    for (int i = threadIdx.x; i < (p.th + 2) * 2 * words; i += kThreads) {
-      const int r = i / (2 * words), side = (i / words) & 1, c = i % words;
-      uint32_t* px = reinterpret_cast<uint32_t*>(
-          y1s + ((size_t)r * wp + (side ? wp - 1 : 0)) * ldm);
-      px[c] = 0u;
+  if (warp == kConsumerThreads / 32) {  // producer
+    if (lane != 0) return;
+    for (int item = blockIdx.x; item < pl.items; item += gridDim.x) {
+      const Item it = item_at(pl, item);
+      const int img = it.img, r0 = it.r0;
+      const int pix1 = (img * H + r0 - 1) * W + it.c0 - (pl.x_row_tiles ? 1 : 0);
+      const int pix3 = (img * H + r0) * W + it.c0;
+      produce_phase(pl.ph[0], pl.cin_slices, 0, 1, pl, sm, ring,
+                    [&](int s) { return BSrc{&maps.w1, s * kSlice}; },
+                    [&](uint32_t st, uint32_t bar, int s, int g, bool dry) {
+                      return load_x_tiles(&maps.x, pl.ph[0], st, bar, s, g, pix1,
+                                          pl.x_row_tiles, W, dry);
+                    });
+      produce_phase(pl.ph[1], 9 * nk, 9 * nk, pl.spp[1], pl, sm, ring,
+                    [&](int s) { return BSrc{&maps.w2, (s / nk) * p.cmid + (s % nk) * kSlice}; },
+                    NoA());
+      produce_phase(pl.ph[2], nk + (kProj ? pl.cin_slices : 0), nk, pl.spp[2], pl, sm, ring,
+                    [&](int s) {
+                      return s < nk ? BSrc{&maps.w3, s * kSlice}
+                                    : BSrc{&maps.wd, (s - nk) * kSlice};
+                    },
+                    [&](uint32_t st, uint32_t bar, int s, int g, bool dry) {
+                      return s < nk ? 0u
+                                    : load_x_tiles(&maps.x, pl.ph[2], st, bar, s - nk, g, pix3,
+                                                   0, 0, dry);
+                    });
     }
+    return;
   }
 
-  // Phase 1: y1 for image rows [r0 - 1, r0 + TH].
-  const int m1 = (p.th + 2) * W;
-  const int nch1 = p.cmid / kChunk;
-  for (int item = warp; item < ((m1 + 15) / 16) * nch1; item += kWarps) {
-    const int mt = item / nch1, n0 = (item % nch1) * kChunk;
-    const __nv_bfloat16* arow[2];
-    bool inside[2];
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int pix = mt * 16 + g + 8 * hh;
-      const int irow = r0 - 1 + pix / W;
-      inside[hh] = pix < m1 && irow >= 0 && irow < H;
-      arow[hh] = ximg + (inside[hh] ? ((size_t)irow * W + pix % W) * p.cin : 0) + 2 * t;
-    }
-    float acc[kNT][4] = {};
-    for (int k0 = 0; k0 < p.cin; k0 += 16) {
-      const uint32_t a[4] = {
-          inside[0] ? ldg32(arow[0] + k0) : 0u, inside[1] ? ldg32(arow[1] + k0) : 0u,
-          inside[0] ? ldg32(arow[0] + k0 + 8) : 0u, inside[1] ? ldg32(arow[1] + k0 + 8) : 0u};
-      mma_chunk(acc, a, p.w1 + k0, p.cin, n0, g, t);
-    }
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int pix = mt * 16 + g + 8 * hh;
-      if (pix >= m1) continue;
-      __nv_bfloat16* dst = y1s + ((size_t)(pix / W) * wp + pix % W + 1) * ldm + n0;
-#pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = j * 8 + 2 * t;
-        uint32_t v = 0u;  // rows outside the image are the conv's zero padding
-        if (inside[hh]) {
-          const float2 b = ldg_f2(p.b1 + n0 + n);
-          v = pack_bf16(fmaxf(acc[j][2 * hh] + b.x, 0.f),
-                        fmaxf(acc[j][2 * hh + 1] + b.y, 0.f));
-        }
-        *reinterpret_cast<uint32_t*>(dst + n) = v;
-      }
-    }
-  }
-  __syncthreads();
+  // consumers: accumulator row of this thread (and 8 below), column pair
+  const int wg = warp >> 2;
+  const int qrow = (warp & 3) * 16 + (lane >> 2), qcol = (lane & 3) * 2;
+  const uint32_t y1 = sm.base, y2 = sm.y2;
+  // phase 1's rows of pixels: the run's W, or x_row_tiles whole tiles a row,
+  // which start at column c0 - 1
+  const int row1 = pl.x_row_tiles ? pl.x_row_tiles * kTileM : W, col1 = pl.x_row_tiles ? 0 : 1;
+  for (int item = blockIdx.x; item < pl.items; item += gridDim.x) {
+    const Item it = item_at(pl, item);
+    const int img = it.img, r0 = it.r0, c0 = it.c0;
 
-  // Phase 2: y2 = 3x3 conv of the y1 tile, for the TH output rows.
-  const int m2 = p.th * W;
-  const int mt2 = (m2 + 15) / 16;
-  for (int item = warp; item < mt2 * nch1; item += kWarps) {
-    const int mt = item / nch1, n0 = (item % nch1) * kChunk;
-    const __nv_bfloat16* abase[2];
+    // Phase 1: y1 for image rows [r0 - 1, r0 + TH] and columns [c0 - 1,
+    // c0 + TW]; pixel i of phase 1 is plane pixel (i / row1) P + i % row1 +
+    // col1, image column c0 - 1 + that.
+    consume_phase(
+        pl.ph[0], pl.cin_slices, 0, 1, pl, sm, ring, wg,
+        [&](int, uint32_t st, int, int slot0) { return a_from_stage(st, slot0); },
+        [&](float(&acc)[4][32], int m0, int mvalid, int n0) {
+          const PhaseCfg& c = pl.ph[0];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      int q = mt * 16 + g + 8 * hh;
-      if (q >= m2) q = 0;  // padding rows of the last m-tile: computed, never stored
-      abase[hh] = y1s + ((size_t)(q / W) * wp + q % W) * ldm + 2 * t;
-    }
-    float acc[kNT][4] = {};
-    for (int tap = 0; tap < 9; ++tap) {
-      const size_t off = (size_t)((tap / 3) * wp + tap % 3) * ldm;
-      const __nv_bfloat16* wt = p.w2 + (size_t)tap * p.cmid;
-      for (int k0 = 0; k0 < p.cmid; k0 += 16) {
-        const uint32_t a[4] = {
-            lds32(abase[0] + off + k0), lds32(abase[1] + off + k0),
-            lds32(abase[0] + off + k0 + 8), lds32(abase[1] + off + k0 + 8)};
-        mma_chunk(acc, a, wt + k0, (size_t)9 * p.cmid, n0, g, t);
-      }
-    }
+          for (int i = 0; i < 4; ++i) {
+            const int mi = i / c.nsub, ni = i % c.nsub;
+            if (i >= c.mpw * c.nsub || mi >= mvalid) continue;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int q = mt * 16 + g + 8 * hh;
-      if (q >= m2) continue;
-      __nv_bfloat16* dst = y2s + (size_t)q * ldm + n0;
+            for (int hh = 0; hh < 2; ++hh) {
+              const int pix = (m0 + mi) * kTileM + qrow + 8 * hh;
+              const int tr = pix / row1, tc = pix % row1 + col1;
+              if (tr >= TH + 2 || tc >= P) continue;
+              const int irow = r0 - 1 + tr, icol = c0 - 1 + tc;
+              const bool inside = irow >= 0 && irow < H && icol >= 0 && icol < W;
+              const int dst = tr * P + tc;
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = j * 8 + 2 * t;
-        const float2 b = ldg_f2(p.b2 + n0 + n);
-        *reinterpret_cast<uint32_t*>(dst + n) =
-            pack_bf16(fmaxf(acc[j][2 * hh] + b.x, 0.f), fmaxf(acc[j][2 * hh + 1] + b.y, 0.f));
-      }
-    }
-  }
-  __syncthreads();
+              for (int j = 0; j < 8; ++j) {
+                const int col = n0 + ni * 64 + j * 8 + qcol;
+                uint32_t v = 0u;  // outside the image: the conv's zero padding
+                if (inside) {
+                  const float2 b = ldg_f2(p.b1 + col);
+                  v = pack_bf16(fmaxf(acc[i][4 * j + 2 * hh] + b.x, 0.f),
+                                fmaxf(acc[i][4 * j + 2 * hh + 1] + b.y, 0.f));
+                }
+                st_plain(y1, pl.y1_rows, dst, col, v);
+              }
+            }
+          }
+        });
+    fence_proxy_async();
+    consumer_sync();
 
-  // Phase 3: out = relu(y2 . w3 + b3 + residual).
-  const int nch3 = p.cout / kChunk;
-  for (int item = warp; item < mt2 * nch3; item += kWarps) {
-    const int mt = item / nch3, n0 = (item % nch3) * kChunk;
-    const __nv_bfloat16* yrow[2];
-    const __nv_bfloat16* xrow[2];
-    bool valid[2];
+    // Phase 2: y2 = 3x3 conv over padded coordinates q = r P + c.
+    consume_phase(
+        pl.ph[1], 9 * nk, 9 * nk, pl.spp[1], pl, sm, ring, wg,
+        [&](int s, uint32_t, int m0, int) {
+          const int tap = s / nk;
+          return a_from_plain(y1, pl.y1_rows, s % nk, m0 * kTileM + (tap / 3) * P + tap % 3);
+        },
+        [&](float(&acc)[4][32], int m0, int mvalid, int n0) {
+          const PhaseCfg& c = pl.ph[1];
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int q = mt * 16 + g + 8 * hh;
-      valid[hh] = q < m2 && r0 + q / W < H;
-      const int qq = valid[hh] ? q : 0;
-      yrow[hh] = y2s + (size_t)qq * ldm + 2 * t;
-      xrow[hh] = ximg + ((size_t)(r0 + qq / W) * W + qq % W) * p.cin;
-    }
-    float acc[kNT][4] = {};
-    for (int k0 = 0; k0 < p.cmid; k0 += 16) {
-      const uint32_t a[4] = {lds32(yrow[0] + k0), lds32(yrow[1] + k0),
-                             lds32(yrow[0] + k0 + 8), lds32(yrow[1] + k0 + 8)};
-      mma_chunk(acc, a, p.w3 + k0, p.cmid, n0, g, t);
-    }
-    float res[kNT][4] = {};
-    if constexpr (kProj) {
-      for (int k0 = 0; k0 < p.cin; k0 += 16) {
-        const uint32_t a[4] = {ldg32(xrow[0] + k0 + 2 * t), ldg32(xrow[1] + k0 + 2 * t),
-                               ldg32(xrow[0] + k0 + 8 + 2 * t),
-                               ldg32(xrow[1] + k0 + 8 + 2 * t)};
-        mma_chunk(res, a, p.wd + k0, p.cin, n0, g, t);
-      }
-    }
+          for (int i = 0; i < 4; ++i) {
+            const int mi = i / c.nsub, ni = i % c.nsub;
+            if (i >= c.mpw * c.nsub || mi >= mvalid) continue;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      if (!valid[hh]) continue;
-      const int q = mt * 16 + g + 8 * hh;
-      __nv_bfloat16* dst =
-          p.out + (((size_t)img * H + r0 + q / W) * W + q % W) * p.cout + n0;
+            for (int hh = 0; hh < 2; ++hh) {
+              const int q = (m0 + mi) * kTileM + qrow + 8 * hh;
+              const int r = q / P, cc = q % P;
+              if (r >= TH || cc >= TW) continue;  // padding columns: computed, dropped
 #pragma unroll
-      for (int j = 0; j < kNT; ++j) {
-        const int n = j * 8 + 2 * t;
-        const float2 b3 = ldg_f2(p.b3 + n0 + n);
-        float r_lo, r_hi;
-        if constexpr (kProj) {
-          const float2 bd = ldg_f2(p.bd + n0 + n);
-          r_lo = res[j][2 * hh] + bd.x;
-          r_hi = res[j][2 * hh + 1] + bd.y;
-        } else {
-          const __nv_bfloat162 xv =
-              *reinterpret_cast<const __nv_bfloat162*>(xrow[hh] + n0 + n);
-          r_lo = __low2float(xv);
-          r_hi = __high2float(xv);
-        }
-        *reinterpret_cast<uint32_t*>(dst + n) =
-            pack_bf16(fmaxf(acc[j][2 * hh] + b3.x + r_lo, 0.f),
-                      fmaxf(acc[j][2 * hh + 1] + b3.y + r_hi, 0.f));
-      }
-    }
+              for (int j = 0; j < 8; ++j) {
+                const int col = n0 + ni * 64 + j * 8 + qcol;
+                const float2 b = ldg_f2(p.b2 + col);
+                st_plain(y2, pl.y2_rows, r * TW + cc, col,
+                         pack_bf16(fmaxf(acc[i][4 * j + 2 * hh] + b.x, 0.f),
+                                   fmaxf(acc[i][4 * j + 2 * hh + 1] + b.y, 0.f)));
+              }
+            }
+          }
+        });
+    fence_proxy_async();
+    consumer_sync();
+
+    // Phase 3: out = relu(y2 . w3 + b3 + residual).
+    const int m3 = TH * TW;
+    consume_phase(
+        pl.ph[2], nk + (kProj ? pl.cin_slices : 0), nk, pl.spp[2], pl, sm, ring, wg,
+        [&](int s, uint32_t st, int m0, int slot0) {
+          return s < nk ? a_from_plain(y2, pl.y2_rows, s, m0 * kTileM)
+                        : a_from_stage(st, slot0);
+        },
+        [&](float(&acc)[4][32], int m0, int mvalid, int n0) {
+          const PhaseCfg& c = pl.ph[2];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int mi = i / c.nsub, ni = i % c.nsub;
+            if (i >= c.mpw * c.nsub || mi >= mvalid) continue;
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const int q = (m0 + mi) * kTileM + qrow + 8 * hh;
+              const int r = q / TW, cc = q % TW;
+              if (q >= m3 || r0 + r >= H || c0 + cc >= W) continue;
+              const size_t pix = (size_t)(img * H + r0 + r) * W + c0 + cc;
+              __nv_bfloat16* dst = p.out + pix * p.cout;
+#pragma unroll
+              for (int j = 0; j < 8; ++j) {
+                const int col = n0 + ni * 64 + j * 8 + qcol;
+                const float2 b3 = ldg_f2(p.b3 + col);
+                float r_lo, r_hi;
+                if constexpr (kProj) {
+                  const float2 bd = ldg_f2(p.bd + col);
+                  r_lo = bd.x;
+                  r_hi = bd.y;
+                } else {
+                  const __nv_bfloat162 xv =
+                      *reinterpret_cast<const __nv_bfloat162*>(p.x + pix * p.cin + col);
+                  r_lo = __low2float(xv);
+                  r_hi = __high2float(xv);
+                }
+                *reinterpret_cast<uint32_t*>(dst + col) =
+                    pack_bf16(fmaxf(acc[i][4 * j + 2 * hh] + b3.x + r_lo, 0.f),
+                              fmaxf(acc[i][4 * j + 2 * hh + 1] + b3.y + r_hi, 0.f));
+              }
+            }
+          }
+        });
   }
 }
 
-size_t smem_bytes(int th, int w, int cmid) {
-  return ((size_t)(th + 2) * (w + 2) + (size_t)th * w) * (cmid + kPad) * sizeof(__nv_bfloat16);
+// The planner's cost of TH x TW output pixels a work item at level L (the
+// count of 64x64x16 products per SM over the grid; bottleneck_sm90.cuh's
+// search_plan picks among them), -1 where the tiles do not fit.
+long plan_cost(Plan& c, const Level& L, int sms, int n, int h, int w, int cin, int cmid,
+               int cout, bool proj, int th, int tw) {
+  const int k1 = 4 * ((cin + kSlice - 1) / kSlice), k2 = 9 * cmid / 16,
+            k3 = cmid / 16 + (proj ? k1 : 0);
+  c = Plan{};
+  c.th = th;
+  c.tw = tw;
+  c.col_tiles = (w + tw - 1) / tw;
+  c.x_row_tiles = tw < w ? (tw + 2 + kTileM - 1) / kTileM : 0;
+  c.pitch = tw + 2;
+  c.tiles_per_img = (h + th - 1) / th * c.col_tiles;
+  c.items = n * c.tiles_per_img;
+  c.cin_slices = (cin + kSlice - 1) / kSlice;
+  c.cmid_slices = cmid / kSlice;
+  const int mt1 = c.x_row_tiles ? (th + 2) * c.x_row_tiles : ((th + 2) * w + kTileM - 1) / kTileM;
+  if (!choose_phase(c.ph[0], mt1, cmid, k1, L.max_x, L.max_nc) ||
+      !choose_phase(c.ph[1], (th * c.pitch + kTileM - 1) / kTileM, cmid, k2, 1 << 20, L.max_nc) ||
+      !choose_phase(c.ph[2], (th * tw + kTileM - 1) / kTileM, cout, k3, proj ? L.max_x : 1 << 20,
+                    L.max_nc))
+    return -1;
+  c.y1_rows = (th + 2) * c.pitch;
+  c.y2_rows = th * tw;
+  const int a1 = std::min(c.ph[0].mg(), c.ph[0].mt);
+  const int a3 = proj ? std::min(c.ph[2].mg(), c.ph[2].mt) : 0;
+  const int layout = place(c, (size_t)c.y1_rows * cmid * 2, (size_t)c.y2_rows * cmid * 2,
+                           a1 * kTileBytes, a3 * kTileBytes, L.min_stages);
+  if (!layout) return -1;
+  const long cost = (long)((c.items + sms - 1) / sms) *
+                    (phase_cost(c.ph[0], k1) + phase_cost(c.ph[1], k2) + phase_cost(c.ph[2], k3));
+  return layout == 2 ? cost * 5 / 4 : cost;  // the compact ring measured ~20% slower
+}
+
+bool make_plan(Plan& best, int n, int h, int w, int cin, int cmid, int cout, bool proj) {
+  const int sms = num_sms();
+  return search_plan(best, h, w, [&](Plan& c, const Level& L, int th, int tw) {
+    return plan_cost(c, L, sms, n, h, w, cin, cmid, cout, proj, th, tw);
+  });
+}
+
+bool takes(int n, int h, int w, int cin, int cmid, int cout, bool proj) {
+  return n >= 1 && n <= 65535 && h >= 1 && w >= 1 && cin % 16 == 0 && cmid % 64 == 0 &&
+         cout % 64 == 0 && cin >= 16 && cmid >= 64 && cout >= 64 && (proj || cin == cout);
+}
+
+void (*kernel_for(bool proj))(TmaMaps, Params, Plan) {
+  return proj ? fused_bottleneck_kernel<true> : fused_bottleneck_kernel<false>;
 }
 
 }  // namespace
@@ -280,24 +296,22 @@ extern "C" int geo_fused_bottleneck(const void* x, const void* w1, const void* b
                                     void* out, int n, int h, int w, int cin, int cmid,
                                     int cout, void* stream) {
   const bool proj = wd != nullptr;
-  if (n < 1 || n > 65535 || h < 1 || w < 1 || cin % 16 || cmid % kChunk ||
-      cout % kChunk || cin < 16 || cmid < kChunk || cout < kChunk ||
-      (proj != (bd != nullptr)) || (!proj && cin != cout))
+  if (!takes(n, h, w, cin, cmid, cout, proj) || proj != (bd != nullptr))
     return (int)cudaErrorInvalidValue;
-  int th = kRowsPerTile < h ? kRowsPerTile : h;
-  while (th > 1 && smem_bytes(th, w, cmid) > kMaxSmem) --th;
-  const size_t smem = smem_bytes(th, w, cmid);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-
+  Plan pl;
+  if (!make_plan(pl, n, h, w, cin, cmid, cout, proj)) return (int)cudaErrorInvalidValue;
+  TmaMaps maps = {};
+  if (!(encode_2d(&maps.x, x, cin, (uint64_t)n * h * w, kTileM) &&
+        encode_2d(&maps.w1, w1, cin, cmid, pl.ph[0].nc()) &&
+        encode_2d(&maps.w2, w2, 9 * (uint64_t)cmid, cmid, pl.ph[1].nc()) &&
+        encode_2d(&maps.w3, w3, cmid, cout, pl.ph[2].nc()) &&
+        (!proj || encode_2d(&maps.wd, wd, cin, cout, pl.ph[2].nc()))))
+    return (int)cudaErrorNotSupported;
   Params p;
   p.x = static_cast<const __nv_bfloat16*>(x);
-  p.w1 = static_cast<const __nv_bfloat16*>(w1);
   p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const __nv_bfloat16*>(w2);
   p.b2 = static_cast<const float*>(b2);
-  p.w3 = static_cast<const __nv_bfloat16*>(w3);
   p.b3 = static_cast<const float*>(b3);
-  p.wd = static_cast<const __nv_bfloat16*>(wd);
   p.bd = static_cast<const float*>(bd);
   p.out = static_cast<__nv_bfloat16*>(out);
   p.h = h;
@@ -305,13 +319,34 @@ extern "C" int geo_fused_bottleneck(const void* x, const void* w1, const void* b
   p.cin = cin;
   p.cmid = cmid;
   p.cout = cout;
-  p.th = th;
-
-  void (*kern)(Params) = proj ? fused_bottleneck_kernel<true> : fused_bottleneck_kernel<false>;
+  auto kern = kernel_for(proj);
   cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((h + th - 1) / th, n);
-  kern<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  const int grid = pl.items < num_sms() ? pl.items : num_sms();
+  kern<<<grid, kThreads, pl.smem, static_cast<cudaStream_t>(stream)>>>(maps, p, pl);
   return (int)cudaGetLastError();
+}
+
+// What the planner chose for a shape: out[0] dynamic shared memory bytes,
+// out[1] blocks per SM, out[2] TH, out[3] ring stages, out[4] TW (output
+// columns of a work item). Returns a cudaError_t.
+extern "C" int geo_fused_bottleneck_plan(int n, int h, int w, int cin, int cmid, int cout,
+                                         int proj, int* out) {
+  Plan pl;
+  if (!takes(n, h, w, cin, cmid, cout, proj != 0) ||
+      !make_plan(pl, n, h, w, cin, cmid, cout, proj != 0))
+    return (int)cudaErrorInvalidValue;
+  auto kern = kernel_for(proj != 0);
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kern, kThreads, pl.smem);
+  out[0] = (int)pl.smem;
+  out[1] = blocks;
+  out[2] = pl.th;
+  out[3] = pl.stages;
+  out[4] = pl.tw;
+  return (int)err;
 }

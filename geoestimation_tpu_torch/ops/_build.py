@@ -1,8 +1,9 @@
 """Builds the port's CUDA sources with nvcc at first use, loads them with ctypes.
 
 Each `csrc/<name>.cu` becomes `build/torch_kernels/lib<name>-<hash>.so` at the
-root of the checkout, where the hash covers the source and the compiler flags,
-so an edited source builds anew. The sources have a plain C interface (no
+root of the checkout, where the hash covers the source, every shared header
+(`csrc/*.cuh`) and the compiler flags, so an edited source or header builds
+anew. The sources have a plain C interface (no
 PyTorch headers), which keeps a build to seconds. `build()` starts one nvcc
 for each source, all at once.
 """
@@ -42,8 +43,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where `csrc/<name>.cu` builds to: keyed on the source, every
+    `csrc/*.cuh` (name and bytes) and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

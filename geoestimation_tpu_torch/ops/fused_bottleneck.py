@@ -125,6 +125,21 @@ def _launch(kernel, tensors, dims, out_hw):
     return out
 
 
+def kernel_plan(kernel, n, h, w, cin, cmid, cout, proj):
+    """What `csrc/<kernel>.cu` chooses for a shape, from its C query (card
+    only): {"smem_bytes", "blocks_per_sm", "th", "stages", "tw"}, TH and TW
+    being the output rows and columns of a work item."""
+    fn = getattr(_build.load(kernel), f"geo_{kernel}_plan")
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(n, h, w, cin, cmid, cout, int(proj), out)
+    if err:
+        raise RuntimeError(f"{kernel} plan query failed: cudaError {err}")
+    return dict(zip(("smem_bytes", "blocks_per_sm", "th", "stages", "tw"),
+                    out))
+
+
 def _on_cpu(x, name):
     """True for a CPU `x` (the plain version runs), False for a CUDA one
     (the kernel launches); any other device raises."""

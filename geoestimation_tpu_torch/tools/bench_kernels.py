@@ -26,8 +26,9 @@ limit. Cases:
                (use_pallas_s2). The JAX tool's mirror variants wait for
                mirror TTA (ROADMAP.md Queue 1, 'TTA variants').
 
-With no case named it runs every case but e2e. It runs on a CUDA card only
-and raises without one.
+With no case named it runs every case but e2e. Each case's line gives the
+plan its kernel chose (`ops.fused_bottleneck.kernel_plan`). It runs on a
+CUDA card only and raises without one.
 """
 
 from __future__ import annotations
@@ -41,7 +42,11 @@ import torch.nn.functional as F
 
 from ..eval.engine import InferenceEngine
 from ..models.fast_infer import build_fast_apply
-from ..ops.fused_bottleneck import fused_bottleneck, fused_bottleneck_s2
+from ..ops.fused_bottleneck import (
+    fused_bottleneck,
+    fused_bottleneck_s2,
+    kernel_plan,
+)
 from . import world
 from .card import bound_ms, card_label, require_cuda, time_ms
 
@@ -140,6 +145,7 @@ def bench_case(name, label, seed=0):
     line = {"case": name, "kernel": kernel.__name__, "N": n,
             "shape": f"{h}x{w} {cin}-{cmid}-{cout}"
                      + (" proj" if proj else ""),
+            **kernel_plan(kernel.__name__, n, h, w, cin, cmid, cout, proj),
             "kernel_ms": ms, "cudnn_ms": cudnn_ms, "speedup": cudnn_ms / ms,
             "bound_ms": bound, "bound_by": bound_by,
             "max_abs_err_vs_cudnn": err, "allclose": ok, "card": label}

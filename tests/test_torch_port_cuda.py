@@ -48,6 +48,17 @@ def block_args(n, h, w, cin, cmid, cout, proj, device, seed=0):
     (4, 56, 56, 256, 64, 256, False),    # layer1.1-2
     (4, 28, 28, 512, 128, 512, False),   # layer2.1-3
     (3, 13, 11, 64, 64, 256, True),      # ragged tile edge, odd width
+    # the edges of the Hopper tiling
+    (2, 8, 8, 16, 64, 128, True),        # Cin 16: a K slice mostly outside Cin
+    (2, 9, 12, 48, 64, 64, True),        # Cin 48: a K slice partly outside Cin
+    (1, 7, 7, 256, 64, 256, False),      # one image; W 7: rows short of a tile
+    (2, 6, 13, 128, 128, 128, False),    # W 13
+    (2, 14, 14, 1024, 256, 1024, False),  # layer3 stride-1 blocks
+    # rows too wide for a tile of whole rows: one row by column tiles
+    (1, 3, 402, 64, 64, 256, True),      # the widest row at Cmid 64 in PR 2
+    (1, 2, 212, 128, 128, 128, False),   # the widest row at Cmid 128 in PR 2
+    (1, 3, 700, 64, 64, 64, True),       # a partial last column tile
+    (2, 4, 450, 128, 64, 128, False),
 ])
 def test_kernel_matches_plain(cuda, shape):
     args = block_args(*shape, device=cuda)
@@ -70,7 +81,14 @@ def test_kernel_refuses_widths_it_does_not_take(cuda):
 @pytest.mark.parametrize("shape", [
     (4, 56, 56, 256, 128, 512),    # layer2.0
     (4, 28, 28, 512, 256, 1024),   # layer3.0 (the bench's layer3entry)
-    (3, 14, 10, 64, 64, 256),      # 7 output rows against 4-row tiles, W/2 odd
+    (3, 14, 10, 64, 64, 256),      # 7 output rows, W/2 odd
+    (1, 56, 56, 256, 128, 512),    # one image at layer2.0
+    (2, 10, 12, 48, 64, 128),      # Cin 48: a K slice partly outside Cin
+    (2, 56, 56, 512, 256, 1024),   # layer3.0 at 448 px
+    # rows too wide for a tile of whole rows: one row by column tiles
+    (1, 4, 482, 64, 64, 256),      # the widest row at Cmid 64 in PR 2
+    (1, 2, 126, 256, 256, 256),    # the widest row at Cmid 256 in PR 2
+    (1, 4, 1200, 64, 64, 128),     # W/2 600: projection boxes per pass group
 ])
 def test_s2_kernel_matches_plain(cuda, shape):
     args = block_args(*shape, proj=True, device=cuda)
@@ -92,3 +110,62 @@ def test_s2_kernel_refuses_widths_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="CUDA kernel takes"):
         port_fb.fused_bottleneck_s2(*args)
     assert port_fb.fused_bottleneck_s2.launches == before
+
+
+@pytest.mark.parametrize("name, shape", [
+    ("fused_bottleneck", (80, 56, 56, 64, 64, 256, True)),
+    ("fused_bottleneck", (80, 56, 56, 256, 64, 256, False)),
+    ("fused_bottleneck", (80, 28, 28, 512, 128, 512, False)),
+    ("fused_bottleneck_s2", (80, 56, 56, 256, 128, 512, True)),
+])
+def test_plan_fits_the_card(cuda, name, shape):
+    """What each kernel's planner chooses at the main-path shapes fits one
+    SM: shared memory within the 227 KB a block may have, a block resident."""
+    plan = port_fb.kernel_plan(name, *shape)
+    assert 0 < plan["smem_bytes"] <= 227 * 1024
+    assert plan["blocks_per_sm"] >= 1
+    assert 1 <= plan["th"] <= shape[1]
+    assert 2 <= plan["stages"] <= 4
+
+
+@pytest.mark.parametrize("name, shape", [
+    ("fused_bottleneck", (1, 3, 700, 64, 64, 64, True)),
+    ("fused_bottleneck_s2", (1, 4, 1200, 64, 64, 128, True)),
+])
+def test_plan_tiles_wide_rows_by_columns(cuda, name, shape):
+    """Where no tile of whole rows fits, a work item is one output row and
+    a tile of columns."""
+    plan = port_fb.kernel_plan(name, *shape)
+    out_w = shape[2] // (2 if name.endswith("s2") else 1)
+    assert plan["th"] == 1 and 1 <= plan["tw"] < out_w
+    assert 0 < plan["smem_bytes"] <= 227 * 1024
+
+
+@pytest.mark.parametrize("name, shape", [
+    ("fused_bottleneck", (1, 1, 1, 64, 10240, 64)),
+    ("fused_bottleneck_s2", (1, 2, 2, 64, 7872, 64)),
+])
+def test_kernels_take_cmid_in_the_thousands(cuda, name, shape):
+    """A Cmid so wide that one output pixel's tiles leave room only for a
+    ring of one stage of the narrowest passes."""
+    n, h, w, cin, cmid, cout = shape
+    proj = name.endswith("s2")
+    assert port_fb.kernel_plan(name, *shape, proj)["stages"] == 1
+    gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def t(shape, scale, dtype):
+        return (torch.randn(shape, generator=gen, device=cuda)
+                * scale).to(dtype)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    args = [t((n, h, w, cin), 1.0, bf), t((cmid, cin), cin ** -0.5, bf),
+            t((cmid,), 0.1, f32), t((cmid, 3, 3, cmid), (9 * cmid) ** -0.5, bf),
+            t((cmid,), 0.1, f32), t((cout, cmid), cmid ** -0.5, bf),
+            t((cout,), 0.1, f32)]
+    args += ([t((cout, cin), cin ** -0.5, bf), t((cout,), 0.1, f32)] if proj
+             else [None, None])
+    got = getattr(port_fb, name)(*args)
+    ref = getattr(port_fb, f"{name}_reference")(*args)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0.05,
+                               atol=0.05)
+    assert (got == ref).float().mean() > 0.9
