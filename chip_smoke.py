@@ -17,24 +17,43 @@ Phases, in order; any failure exits non-zero and prints no result line:
      stride-1 kernel only), then with `use_pallas_s2` (the stride-2 kernel
      too); launch counts of each run, agreement with the unfolded module
      path, and images/s;
-  4. one JSON line describing every kernel, then the result line
+  4. host-exact ten-crop: `predict_batch` of a `tta_mode="host_exact"`
+     engine on the fast path with the stride-1 kernel, fed
+     `decode_batch_tencrop` of 8 seeded non-square JPEGs (seeded uint8 crops
+     where Pillow is missing); its launches, and its logits held to the
+     module path;
+  5. the server: `GeoInferenceServer` on the default fast path (batch 16,
+     5 ms wait) answers 128 seeded JPEG requests from 64 client threads in a
+     process of their own;
+     every answer equals `predict_batch` on the same decoded images, the
+     stride-1 kernel launched 6 times per micro-batch, `/healthz` and
+     `/stats` answer; one line with requests/s, p50/p99 latency, mean batch
+     occupancy, the decode backend and the card;
+  6. one JSON line describing every kernel, then the result line
      {"ok": true, "device": {...}}.
 
-Imports torch, numpy and the standard library only, besides the port.
+Imports torch, numpy and the standard library only, besides the port
+(Pillow too, where it is installed, to make and decode JPEGs).
 """
 
 from __future__ import annotations
 
+import io
 import json
+import multiprocessing
 import sys
+import threading
 import time
+import urllib.request
 
 import numpy as np
 import torch
 
 from geoestimation_tpu_torch.eval.engine import InferenceEngine
+from geoestimation_tpu_torch.ingest import decode
 from geoestimation_tpu_torch.ops import _build
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
+from geoestimation_tpu_torch.serve import GeoInferenceServer
 from geoestimation_tpu_torch.tools import world
 from geoestimation_tpu_torch.tools.bench_kernels import (
     block_cost,
@@ -262,15 +281,10 @@ def _drive(name, engine, images, want):
     return preds, launches
 
 
-def phase_main_path(label):
-    """Returns each kernel's launch count on its main path's run."""
+def phase_main_path(label, engine):
+    """Returns each kernel's launch count on its main path's run, and the
+    default fast engine and the module engine, for the later phases."""
     t0 = time.perf_counter()
-    config, sd, parts = world.build_world()
-
-    def engine(device="cuda", **kw):
-        return InferenceEngine(config, sd, partitionings=parts, n_crops=10,
-                               dtype=torch.bfloat16, device=device, **kw)
-
     fast = engine(fast=True, use_pallas=True)
     assert fast.hierarchy.valid.all(), "a fine cell lacks an ancestor"
     log(f"main path: {world.ARCH} heads {world.REAL_CLASS_COUNTS}, engine "
@@ -328,17 +342,207 @@ def phase_main_path(label):
         raise RuntimeError(f"launches per forward {per_fwd} and "
                            f"{per_fwd_s2}, want {WANT_DEFAULT} and {WANT_S2}")
     return {"fused_bottleneck": default_launches,
-            "fused_bottleneck_s2": s2_launches}
+            "fused_bottleneck_s2": s2_launches}, fast, module
+
+
+# -- phase 4 -------------------------------------------------------------------
+
+def _pillow():
+    """PIL.Image, or None where Pillow is not installed (it is not a
+    dependency of the port's device path)."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    return Image
+
+
+def _jpeg(image_mod, array):
+    buf = io.BytesIO()
+    image_mod.fromarray(array).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+def phase_host_exact(engine, module):
+    """`tta_mode="host_exact"` on the fast path: the stride-1 kernel's
+    launches in one `predict_batch` of exact host ten-crops, and the per-crop
+    logits against the module path's on the same crops."""
+    fast = engine(fast=True, use_pallas=True, tta_mode="host_exact")
+    rng = np.random.default_rng(world.SEED + 2)
+    image_mod = _pillow()
+    if image_mod is not None:
+        sizes = [(333, 250), (250, 333), (480, 300), (300, 457), (640, 427),
+                 (427, 640), (257, 700), (900, 261)]          # (w, h)
+        blobs = [_jpeg(image_mod, rng.integers(0, 256, (h, w, 3), np.uint8))
+                 for w, h in sizes]
+        crops, ok = decode.decode_batch_tencrop(blobs)
+        if not ok.all():
+            raise RuntimeError(f"decode_batch_tencrop failed on {ok}")
+        source = "decode_batch_tencrop of 8 seeded non-square JPEGs"
+    else:
+        crops = rng.integers(0, 256, (8, 10, 224, 224, 3), np.uint8)
+        source = "8 x 10 seeded uint8 crops (Pillow is not installed)"
+    preds, launches = _drive("host_exact", fast, crops, WANT_DEFAULT)
+    log(f"host exact: {source}, {crops.shape} uint8")
+    x = torch.as_tensor(crops, device="cuda")
+    _hold_to_module("host_exact", fast, module, x)
+    ref = module.predict_batch(crops)
+    same = {k: float(np.mean(preds[k][0] == ref[k][0])) for k in preds}
+    log(f"host exact: predicted-class agreement fast vs module {same}")
+    return launches
+
+
+# -- phase 5 -------------------------------------------------------------------
+
+N_REQUESTS, N_CLIENTS, SERVER_BATCH = 128, 64, 16
+
+
+def _first_error(message):
+    """The compiler's first error line of a failed build."""
+    lines = message.splitlines()
+    return next((line for line in lines if "error" in line), lines[-1])
+
+
+def _get(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def _post(port, blob):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/predict",
+                                 data=blob, method="POST")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return json.loads(r.read())["predictions"]
+
+
+def _burst(send, n, n_clients):
+    """send(0..n-1) from n_clients threads -> (answers, seconds per
+    request, wall seconds)."""
+    answers, latency = [None] * n, [0.0] * n
+
+    def client(k):
+        for i in range(k, n, n_clients):
+            t0 = time.perf_counter()
+            answers[i] = send(i)
+            latency[i] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return answers, latency, time.perf_counter() - t0
+
+
+def _http_burst(port, blobs, n_clients):
+    """The clients' side, run in a process of its own so that they do not
+    compete with the server for the interpreter lock."""
+    return _burst(lambda i: _post(port, blobs[i]), len(blobs), n_clients)
+
+
+def phase_server(label, fast):
+    """The server on the default fast path under a burst of clients.
+    Returns its summary line."""
+    srv = GeoInferenceServer(fast, port=0, batch_size=SERVER_BATCH,
+                             max_wait_ms=5)
+    srv.start_background()
+    try:
+        rng = np.random.default_rng(world.SEED + 3)
+        image_mod = _pillow()
+        if image_mod is not None:
+            blobs = [_jpeg(image_mod, rng.integers(
+                0, 256, (int(rng.integers(240, 600)),
+                         int(rng.integers(240, 600)), 3), np.uint8))
+                for _ in range(N_REQUESTS)]
+            decoded = [srv._decode(b) for b in blobs]   # the server's decode
+            if not all(ok[0] for _, ok in decoded):
+                raise RuntimeError("the server's decoder refused a JPEG")
+            images = np.stack([im[0] for im, _ in decoded])
+            how = ("POST /predict of seeded JPEGs from a client process of "
+                   "its own")
+        else:
+            images = rng.integers(0, 256, (N_REQUESTS, 256, 256, 3),
+                                  np.uint8)
+            how = ("MicroBatcher.submit of seeded uint8 arrays: Pillow is "
+                   "not installed, so no JPEG can be made")
+        native = ("built" if decode.native.available() else "not built: "
+                  + _first_error(decode.native.build_error()))
+        log(f"server: {how}; decode backend {decode.auto_backend()!r}; "
+            f"native ingest library {native}")
+        fast.predict_batch(images[:SERVER_BATCH])   # the --warmup batch
+        ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
+        if image_mod is not None:
+            with multiprocessing.get_context("spawn").Pool(1) as pool:
+                answers, latency, wall = pool.apply(
+                    _http_burst, (srv.port, blobs, N_CLIENTS))
+        else:
+            answers, latency, wall = _burst(
+                lambda i: srv.batcher.submit(images[i]), N_REQUESTS,
+                N_CLIENTS)
+        launches = (ops.fused_bottleneck.launches,
+                    ops.fused_bottleneck_s2.launches)
+        stats = srv.batcher.stats()
+        if None in answers or stats["requests"] != N_REQUESTS:
+            raise RuntimeError(f"server answered {stats['requests']} of "
+                               f"{N_REQUESTS} requests")
+        want = (WANT_DEFAULT[0] * stats["batches"], 0)
+        log(f"server: {stats['batches']} micro-batches, launches "
+            f"fused_bottleneck {launches[0]}, fused_bottleneck_s2 "
+            f"{launches[1]} (want {want})")
+        if launches != want:
+            raise RuntimeError(f"server: launches {launches}, want {want}")
+
+        # every answer against predict_batch on the same decoded images, in
+        # batches of the server's size (the same shapes on the card)
+        for start in range(0, N_REQUESTS, SERVER_BATCH):
+            ref = fast.predict_batch(images[start:start + SERVER_BATCH])
+            for j, answer in enumerate(answers[start:start + SERVER_BATCH]):
+                want_answer = {k: {"class": int(cls[j]), "lat": float(lat[j]),
+                                   "lng": float(lng[j])}
+                               for k, (cls, lat, lng) in ref.items()}
+                if answer != want_answer:
+                    raise RuntimeError(
+                        f"server answer {start + j} differs from "
+                        f"predict_batch: {answer} != {want_answer}")
+        health, served = _get(srv.port, "/healthz"), _get(srv.port, "/stats")
+        if health["status"] != "ok" or served["requests"] != N_REQUESTS:
+            raise RuntimeError(f"/healthz {health}, /stats {served}")
+        log(f"server: /healthz {health}; /stats {served}")
+    finally:
+        srv.close()
+    ms = 1e3 * np.asarray(latency)
+    return {"metric": "server requests/s", "requests": N_REQUESTS,
+            "clients": N_CLIENTS, "batch_size": SERVER_BATCH,
+            "max_wait_ms": 5, "requests_per_s": N_REQUESTS / wall,
+            "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)),
+            "mean_occupancy": stats["mean_occupancy"],
+            "batches": stats["batches"],
+            "predict_batch_share": stats["predict_s"] / wall, "how": how,
+            "decode_backend": decode.auto_backend(),
+            "launches_fused_bottleneck": launches[0], "card": label}
 
 
 def main():
     t0 = time.perf_counter()
     label = phase_device()
     kernels = phase_kernels(label)
-    launches = phase_main_path(label)
+    config, sd, parts = world.build_world()
+
+    def engine(device="cuda", **kw):
+        return InferenceEngine(config, sd, partitionings=parts, n_crops=10,
+                               dtype=torch.bfloat16, device=device, **kw)
+
+    launches, fast, module = phase_main_path(label, engine)
+    phase_host_exact(engine, module)
+    server_line = phase_server(label, fast)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     log(f"card: {label}; wall {time.perf_counter() - t0:.1f} s")
+    print("server " + json.dumps(server_line))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,8 +16,6 @@ import torch
 NOT_PORTED = {
     "feature_tta": (False, "TTA variants"),
     "feature_tta_level": (3, "TTA variants"),
-    "exact_tta": (False, "Host ingest: native binding, host_exact, "
-                         "decode_batch_tencrop"),
     "calib_dir": (None, "int8 serving path"),
     "calib_images": (64, "int8 serving path"),
     "calib_stat": ("auto", "int8 serving path"),
@@ -60,11 +58,15 @@ def add_shared_args(p: argparse.ArgumentParser):
                    help="scaled DCT JPEG decode on the host ingest path "
                         "(faster on large photos; slightly different "
                         "pixels)")
+    p.add_argument("--exact_tta", action="store_true",
+                   help="torchvision-exact ten-crop on the host (TenCrop of "
+                        "the full resized rectangle, not of a center "
+                        "square): strict parity on non-square images for "
+                        "imported reference checkpoints; forces --crops 10")
     not_ported = "not ported yet (see ROADMAP.md)"
     p.add_argument("--feature_tta", action="store_true", help=not_ported)
     p.add_argument("--feature_tta_level", type=int, default=3,
                    choices=[1, 2, 3], help=not_ported)
-    p.add_argument("--exact_tta", action="store_true", help=not_ported)
     p.add_argument("--calib_dir", default=None, help=not_ported)
     p.add_argument("--calib_images", type=int, default=64, help=not_ported)
     p.add_argument("--calib_stat", default="auto",
@@ -78,12 +80,12 @@ def add_shared_args(p: argparse.ArgumentParser):
     p.add_argument("--process_id", type=int, default=None, help=not_ported)
 
 
-def check_ported(args):
+def check_ported(args, not_ported=NOT_PORTED):
     """Exit with a clear message on a flag the port does not have yet."""
     if args.precision == 8:
         raise SystemExit("--precision 8 (int8 serving) is not ported yet "
                          "(ROADMAP.md Queue 1, 'int8 serving path')")
-    for flag, (default, item) in NOT_PORTED.items():
+    for flag, (default, item) in not_ported.items():
         if getattr(args, flag) != default:
             raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
                              f"Queue 1, {item!r})")
@@ -105,6 +107,7 @@ def make_engine(args, use_pallas=False):
                      args.checkpoint, os.getcwd()],
         fast=args.fast,
         use_pallas=use_pallas,
+        tta_mode="host_exact" if args.exact_tta else "device",
         tta_fold=args.tta_fold,
         fast_decode=args.fast_decode,
         device="cpu" if args.cpu else "cuda",

@@ -1,7 +1,7 @@
 """Image-folder eval dataset: the reference's inference/test input format.
 
-The port of `geoestimation_tpu/data/image_folder.py` (without host ten-crop
-and process slicing). Reference behavior (README.md:110): `--image_dir`
+The port of `geoestimation_tpu/data/image_folder.py` (without process
+slicing). Reference behavior (README.md:110): `--image_dir`
 globs `*.jpg, *.jpeg, *.png`; meta CSVs carry required columns IMG_ID, LAT,
 LON (README.md:156). Batches are padded to a fixed size with a validity mask,
 so every batch has one shape. pandas is imported where a meta CSV is read.
@@ -34,7 +34,7 @@ def list_images(image_dir: str) -> list:
 @dataclass
 class EvalBatch:
     ids: list            # image ids (file names), padded entries repeat last
-    images: np.ndarray   # (B, base, base, 3) uint8
+    images: np.ndarray   # (B, base, base, 3) or (B, 10, crop, crop, 3) uint8
     valid: np.ndarray    # (B,) bool — False for padding or decode failures
 
 
@@ -45,12 +45,18 @@ def iter_image_folder(
     resize_to: int = 256,
     num_workers: Optional[int] = None,
     prefetch: int = 2,
+    tencrop_host: bool = False,
+    crop: int = 224,
     fast_decode: bool = False,
 ) -> Iterator[EvalBatch]:
     """Decode-and-batch iterator with background prefetch.
 
     The decode of batch k+1 overlaps the device compute of batch k: batches
     are produced by a worker thread into a bounded queue.
+
+    tencrop_host=True yields torchvision-exact host ten-crops
+    (B, 10, crop, crop, 3) instead of (B, base, base, 3) squares -- the
+    strict-parity path for imported reference checkpoints.
 
     fast_decode=True enables scaled DCT decode for JPEGs (several times
     faster host ingest on large photos, slightly different pixel values —
@@ -76,10 +82,16 @@ def iter_image_folder(
             for start in range(0, len(paths), batch_size):
                 chunk = paths[start:start + batch_size]
                 blobs = decode.read_files(chunk)
-                images, ok = decode.decode_batch(
-                    blobs, resize_to=resize_to, base_size=base_size,
-                    num_threads=num_workers, fast_scale=fast_decode,
-                )
+                if tencrop_host:
+                    images, ok = decode.decode_batch_tencrop(
+                        blobs, resize_to=resize_to, crop=crop,
+                        num_threads=num_workers,
+                    )
+                else:
+                    images, ok = decode.decode_batch(
+                        blobs, resize_to=resize_to, base_size=base_size,
+                        num_threads=num_workers, fast_scale=fast_decode,
+                    )
                 ids = [os.path.basename(p) for p in chunk]
                 pad = batch_size - len(chunk)
                 if pad:

@@ -1,7 +1,8 @@
 """Batched inference engine: images -> per-partitioning + f* predictions.
 
-The port of `geoestimation_tpu/eval/engine.py` (device TTA). One forward
-takes the uint8 host batch to the device, normalizes and crops it there,
+The port of `geoestimation_tpu/eval/engine.py` (device TTA and host-exact
+ten-crop). One forward takes the uint8 host batch to the device, normalizes
+and crops it there (or only normalizes the host's exact ten-crops),
 runs the classifier -- the module path, or the BN-folded fast path with the
 fused CUDA bottleneck kernel -- folds the crops, applies the f* rule, and
 returns predicted classes and coordinates for every partitioning key plus
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from ..geo import Hierarchy, load_partitionings
-from ..ingest.pipeline import eval_pipeline
+from ..ingest.pipeline import eval_pipeline, normalize
 from ..models.classifier import MultiPartitioningClassifier
 from .infer import TTA_FOLDS, HierarchyArrays, mean_tta_logits, predict_all
 from .metrics import DEFAULT_THRESHOLDS_KM, GcdAccumulator, gcd_threshold_counts
@@ -96,7 +97,10 @@ class InferenceEngine:
         kernel (its plain version on the CPU); use_pallas_s2 with it routes
         the stride-2 stage entries whose input width is a multiple of 8
         through the stride-2 kernel (no CLI sets it, as in the JAX package;
-        chip_smoke.py and the bench tools do). tta_fold: how per-crop
+        chip_smoke.py and the bench tools do). tta_mode: 'device' (crops
+        from a 256 square on the device) or 'host_exact' (torchvision-exact
+        host ten-crop of the full resized rectangle, for parity on
+        non-square images; forces n_crops=10). tta_fold: how per-crop
         logits combine (eval.infer.mean_tta_logits). fast_decode: scaled
         DCT JPEG decode on the host. device: 'cuda' (default) or 'cpu'.
         """
@@ -104,13 +108,12 @@ class InferenceEngine:
             _not_ported("int8 serving", "int8 serving path")
         if layout is not None:
             _not_ported("sharded eval (layout)", "Training")
-        if tta_mode in ("host_exact", "feature"):
-            _not_ported(f"tta_mode={tta_mode!r}",
-                        "Host ingest: native binding, host_exact, "
-                        "decode_batch_tencrop" if tta_mode == "host_exact"
-                        else "TTA variants")
-        if tta_mode != "device":
+        if tta_mode == "feature":
+            _not_ported("tta_mode='feature'", "TTA variants")
+        if tta_mode not in ("device", "host_exact"):
             raise ValueError(f"unknown tta_mode {tta_mode!r}")
+        if tta_mode == "host_exact":
+            n_crops = 10
         if tta_fold not in TTA_FOLDS:
             raise ValueError(
                 f"unknown tta_fold {tta_fold!r}; have {TTA_FOLDS}")
@@ -130,6 +133,7 @@ class InferenceEngine:
         self.n_crops = n_crops
         self.crop = crop
         self.dtype = dtype
+        self.tta_mode = tta_mode
         self.tta_fold = tta_fold
         self._fast_decode = fast_decode
         n_classes = tuple(len(p) for p in partitionings)
@@ -158,10 +162,16 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def crop_logits(self, images_u8):
-        """uint8 (B, base, base, 3) tensor on the engine's device -> list
-        of per-head (B * n_crops, C) float32 logits."""
-        x = eval_pipeline(images_u8, n_crops=self.n_crops, crop=self.crop,
-                          dtype=self.dtype)
+        """uint8 (B, base, base, 3) tensor on the engine's device, or host
+        crops (B, n_crops, crop, crop, 3) -> list of per-head
+        (B * n_crops, C) float32 logits."""
+        if images_u8.ndim == 5:
+            # host-precropped: normalize only, crops folded into the batch
+            x = normalize(images_u8.reshape((-1,) + images_u8.shape[-3:]),
+                          self.dtype)
+        else:
+            x = eval_pipeline(images_u8, n_crops=self.n_crops,
+                              crop=self.crop, dtype=self.dtype)
         if self._fast_apply is not None:
             return self._fast_apply(x)
         return self.model(x)
@@ -189,7 +199,8 @@ class InferenceEngine:
         return sorted([p.name for p in self.partitionings] + ["hierarchy"])
 
     def predict_batch(self, images_u8: np.ndarray):
-        """uint8 (B, base, base, 3) -> {p_key: (cls, lat, lng)} numpy."""
+        """uint8 (B, base, base, 3), or (B, 10, crop, crop, 3) host crops
+        -> {p_key: (cls, lat, lng)} numpy."""
         images = torch.as_tensor(np.asarray(images_u8)).to(self.device)
         flat = self._forward(images).cpu().numpy()
         return {
@@ -213,6 +224,7 @@ class InferenceEngine:
         rows = []
         for batch in iter_image_folder(
             image_dir, batch_size=batch_size, num_workers=num_workers,
+            tencrop_host=(self.tta_mode == "host_exact"), crop=self.crop,
             fast_decode=self._fast_decode,
         ):
             preds = self.predict_batch(batch.images)
@@ -246,6 +258,7 @@ class InferenceEngine:
         n_missing = 0
         for batch in iter_image_folder(
             image_dir, batch_size=batch_size, num_workers=num_workers,
+            tencrop_host=(self.tta_mode == "host_exact"), crop=self.crop,
             fast_decode=self._fast_decode,
         ):
             true_lat = np.zeros(len(batch.ids), np.float32)

@@ -1,1 +1,2 @@
-"""Ingest: host decode (PIL) and the device image pipeline."""
+"""Ingest: host decode (the native C++ library or PIL) and the device image
+pipeline."""

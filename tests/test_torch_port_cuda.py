@@ -169,3 +169,64 @@ def test_kernels_take_cmid_in_the_thousands(cuda, name, shape):
     torch.testing.assert_close(got.float(), ref.float(), rtol=0.05,
                                atol=0.05)
     assert (got == ref).float().mean() > 0.9
+
+
+def test_server_answers_as_predict_batch(cuda):
+    """The server on a fast engine with the stride-1 kernel answers each
+    request as `predict_batch` does on the same decoded images, and every
+    micro-batch launched the kernel (resnet14 at 224 px: layer1.0 is its
+    one stride-1 block in layer1 and layer2)."""
+    import io
+    import json
+    import threading
+    import urllib.request
+
+    from PIL import Image
+
+    from geoestimation_tpu_torch.eval.engine import InferenceEngine
+    from geoestimation_tpu_torch.serve import GeoInferenceServer
+    from geoestimation_tpu_torch.tools import world
+
+    config, sd, parts = world.build_world(arch="resnet14",
+                                          counts=(40, 120, 360))
+    engine = InferenceEngine(config, sd, partitionings=parts, n_crops=10,
+                             fast=True, use_pallas=True, device=cuda)
+    rng = np.random.default_rng(0)
+    blobs = []
+    for _ in range(8):
+        buf = io.BytesIO()
+        Image.fromarray(rng.integers(0, 256, (300, 280, 3), np.uint8)).save(
+            buf, format="JPEG", quality=90)
+        blobs.append(buf.getvalue())
+    srv = GeoInferenceServer(engine, port=0, batch_size=4, max_wait_ms=20)
+    srv.start_background()
+    try:
+        images = np.stack([srv._decode(b)[0][0] for b in blobs])
+        answers = [None] * len(blobs)
+
+        def post(i):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/predict", data=blobs[i],
+                method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                answers[i] = json.loads(r.read())["predictions"]
+
+        before = port_fb.fused_bottleneck.launches
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(blobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        launched = port_fb.fused_bottleneck.launches - before
+        batches = srv.batcher.stats()["batches"]
+    finally:
+        srv.close()
+    assert launched == batches >= 2
+    for start in range(0, len(blobs), 4):
+        ref = engine.predict_batch(images[start:start + 4])
+        for j in range(4):
+            assert answers[start + j] == {
+                k: {"class": int(c[j]), "lat": float(la[j]),
+                    "lng": float(ln[j])} for k, (c, la, ln) in ref.items()}

@@ -133,7 +133,8 @@ def test_decode_matches_jax_pil_path(fast_scale):
              _image_blob(256, 256, "PNG"), b"not an image"]
     ref, ref_ok = jax_decode.decode_batch(blobs, backend="pil",
                                           fast_scale=fast_scale)
-    got, got_ok = port_decode.decode_batch(blobs, fast_scale=fast_scale)
+    got, got_ok = port_decode.decode_batch(blobs, backend="pil",
+                                           fast_scale=fast_scale)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(got_ok, ref_ok)
     assert got_ok.tolist() == [True, True, True, False]
@@ -199,10 +200,38 @@ def world(tmp_path_factory):
 
 @pytest.fixture
 def jax_pil_decode(monkeypatch):
-    """The JAX package decodes through PIL too (its native decoder is the
-    port's later item), so both sides see the same pixels."""
+    """Both packages decode through PIL, so both sides see the same pixels
+    whichever native decoder is built."""
     monkeypatch.setattr("geoestimation_tpu.ingest.native.available",
                         lambda: False)
+    monkeypatch.setattr("geoestimation_tpu_torch.ingest.native.available",
+                        lambda: False)
+
+
+@pytest.fixture(scope="module")
+def jax_native_so(tmp_path_factory):
+    from tests.test_torch_port_ingest import build_jax_native
+
+    return build_jax_native(tmp_path_factory.mktemp("jax_ingest"))
+
+
+@pytest.fixture(params=["pil", "default"])
+def decoder(request):
+    """'pil': both sides pinned to PIL (jax_pil_decode); 'default': each
+    side on its own `auto` backend, the native decoder of each where it
+    builds. Both sides must resolve to the same backend."""
+    from tests.test_torch_port_ingest import jax_native_from
+
+    if request.param == "pil":
+        request.getfixturevalue("jax_pil_decode")
+        assert port_decode.auto_backend() == "pil"
+        yield "pil"
+        return
+    with jax_native_from(request.getfixturevalue("jax_native_so")) as native:
+        assert port_decode.auto_backend() == "turbo", \
+            port_decode.native.build_error()
+        assert native.available()
+        yield "turbo"
 
 
 def test_config_schema_matches_jax(world, tmp_path):
@@ -232,13 +261,21 @@ def test_image_folder_and_meta_match_jax(world, jax_pil_decode):
                                   jax_folder.load_meta_csv(world["meta"]))
 
 
-def test_inference_cli_matches_jax_fp32(world, tmp_path, jax_pil_decode):
+TTA_CASES = [pytest.param("pil", [], id="pil-device_tta"),
+             pytest.param("default", [], id="default-device_tta"),
+             pytest.param("default", ["--exact_tta"], id="default-exact_tta")]
+
+
+@pytest.mark.parametrize("decoder, tta", TTA_CASES, indirect=["decoder"])
+def test_inference_cli_matches_jax_fp32(world, tmp_path, decoder, tta):
+    """Both CLIs at fp32 on the world's non-square images; --exact_tta is
+    the host ten-crop, decoded through PIL on both sides."""
     from classification.inference import main as jax_main
 
     from geoestimation_tpu_torch.classification.inference import main
 
     common = ["--image_dir", world["images"], "--batch_size", "4",
-              "--crops", "10", "--precision", "32", "--cpu"]
+              "--crops", "10", "--precision", "32", "--cpu"] + tta
     jax_main(["--checkpoint", world["jax"], "--output",
               str(tmp_path / "jax.csv")] + common)
     main(["--checkpoint", world["port"], "--output",
@@ -253,14 +290,15 @@ def test_inference_cli_matches_jax_fp32(world, tmp_path, jax_pil_decode):
     np.testing.assert_allclose(got.pred_lng, ref.pred_lng, rtol=0, atol=1e-5)
 
 
-def test_test_cli_matches_jax_fp32(world, tmp_path, jax_pil_decode):
+@pytest.mark.parametrize("decoder, tta", TTA_CASES, indirect=["decoder"])
+def test_test_cli_matches_jax_fp32(world, tmp_path, decoder, tta):
     from classification.test import main as jax_main
 
     from geoestimation_tpu_torch.classification.test import main
 
     common = ["--image_dirs", world["images"], "--meta_files", world["meta"],
               "--batch_size", "4", "--crops", "1", "--precision", "32",
-              "--cpu"]
+              "--cpu"] + tta
     ref = jax_main(["--checkpoint", world["jax"]] + common)
     got = main(["--checkpoint", world["port"], "--json",
                 str(tmp_path / "acc.json")] + common)
@@ -277,13 +315,16 @@ def test_test_cli_matches_jax_fp32(world, tmp_path, jax_pil_decode):
     assert (tmp_path / "acc.json").exists()
 
 
-def test_inference_cli_fast_kernel_path_on_cpu(world, tmp_path):
+@pytest.mark.parametrize("tta", [[], ["--exact_tta"]],
+                         ids=["device_tta", "exact_tta"])
+def test_inference_cli_fast_kernel_path_on_cpu(world, tmp_path, tta):
     """--fast --pallas through the CLI: the folded path with the kernel's
-    plain version on the CPU gives the module path's classes."""
+    plain version on the CPU gives the module path's classes, on device
+    crops and on the host's exact ten-crops."""
     from geoestimation_tpu_torch.classification.inference import main
 
     common = ["--checkpoint", world["port"], "--image_dir", world["images"],
-              "--batch_size", "8", "--crops", "1", "--cpu"]
+              "--batch_size", "8", "--crops", "1", "--cpu"] + tta
     main(common + ["--output", str(tmp_path / "fast.csv"), "--fast",
                    "--pallas"])
     main(common + ["--output", str(tmp_path / "module.csv")])
@@ -294,7 +335,7 @@ def test_inference_cli_fast_kernel_path_on_cpu(world, tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--precision", "8"], ["--feature_tta"], ["--exact_tta"],
+    ["--precision", "8"], ["--feature_tta"], ["--recalibrate"],
     ["--calib_dir", "x"], ["--coordinator", "localhost:1234"],
 ])
 def test_cli_refuses_flags_not_ported(world, flags):
