@@ -29,7 +29,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      stride-1 kernel launched 6 times per micro-batch, `/healthz` and
      `/stats` answer; one line with requests/s, p50/p99 latency, mean batch
      occupancy, the decode backend and the card;
-  6. one JSON line describing every kernel, then the result line
+  6. int8 (`--precision 8`): `InferenceEngine(int8=True)` on the same
+     world calibrates (`calib_stat="auto"`) on its first batch, then one
+     `predict_batch` launches the int8 convolution 53 times; its per-crop
+     logits equal the plain int8 network's on the card (same scales) and
+     correlate >= 0.98 with the float32 module path's per head; ten-crop
+     images/s at batch 64 beside phase 3's bf16 figure; then the same on
+     phase 4's host ten-crops (`tta_mode="host_exact"`, 5-D batches). The
+     int8 convolution's check against its plain version (bit for bit, at
+     every convolution shape of the int8 ResNet50) runs in phase 2;
+  7. one JSON line describing every kernel, then the result line
      {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
@@ -50,8 +59,13 @@ import numpy as np
 import torch
 
 from geoestimation_tpu_torch.eval.engine import InferenceEngine
+from geoestimation_tpu_torch.eval.infer import mean_tta_logits, predict_all
 from geoestimation_tpu_torch.ingest import decode
+from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline_s8, shift_s8
+from geoestimation_tpu_torch.models import quant
+from geoestimation_tpu_torch.models.resnet import STAGE_SIZES
 from geoestimation_tpu_torch.ops import _build
+from geoestimation_tpu_torch.ops import conv_s8 as ops8
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
 from geoestimation_tpu_torch.serve import GeoInferenceServer
 from geoestimation_tpu_torch.tools import world
@@ -61,6 +75,7 @@ from geoestimation_tpu_torch.tools.bench_kernels import (
     cudnn_chain,
 )
 from geoestimation_tpu_torch.tools.card import (
+    H100_INT8_OPS,
     bound_ms,
     card_label,
     require_cuda,
@@ -203,12 +218,152 @@ def check_kernel(name, label, gen):
     }
 
 
+def int8_conv_shapes(n=80, arch="resnet50", crop=224):
+    """[(label, (N, H, Cin, Cout, K, stride, pad, out_hw, lo, res_mode),
+    launches per forward)] of every distinct convolution of the int8
+    ResNet50 at `crop`-px crops, N crops: the stem over its space-to-depth
+    buffer, and each block's 1x1, 3x3 and conv3 (the stage entries' conv3
+    requantized alone, their downsample conv with the entry residual; the
+    identity blocks' conv3 with the identity residual)."""
+    shapes = {}
+
+    def add(label, key):
+        shapes.setdefault(key, [label, 0])[1] += 1
+
+    add("stem 4x4 space-to-depth", (n, (crop + 8) // 2, 16, 64, 4, 1, 0,
+                                     (crop // 2, crop // 2), 0.0, None))
+    h, cin = crop // 4, 64
+    for stage, n_blocks in enumerate(STAGE_SIZES[arch]):
+        mid, layer = 64 * 2 ** stage, f"layer{stage + 1}"
+        for b in range(n_blocks):
+            s = 2 if stage > 0 and b == 0 else 1
+            ho = (h - 1) // s + 1
+            add(f"{layer} conv1 1x1 {cin}-{mid} @{h}",
+                (n, h, cin, mid, 1, 1, 0, None, 0.0, None))
+            add(f"{layer} conv2 3x3/{s} {mid} @{h}",
+                (n, h, mid, mid, 3, s, 1, None, 0.0, None))
+            if b == 0:
+                add(f"{layer} conv3 1x1 {mid}-{4 * mid} signed @{ho}",
+                    (n, ho, mid, 4 * mid, 1, 1, 0, None, -127.0, None))
+                add(f"{layer} downsample 1x1/{s} {cin}-{4 * mid} + entry "
+                    f"residual @{h}", (n, h, cin, 4 * mid, 1, s, 0, None, 0.0,
+                                      "mul_add"))
+            else:
+                add(f"{layer} conv3 1x1 {mid}-{4 * mid} + identity residual "
+                    f"@{ho}", (n, ho, mid, 4 * mid, 1, 1, 0, None, 0.0,
+                               "fma"))
+            h, cin = ho, 4 * mid
+    return [(label, key, count) for key, (label, count) in shapes.items()]
+
+
+INT8_LAUNCHES = 53      # one per convolution of the int8 ResNet50
+STEM_S2D_CIN = 12       # the stem's space-to-depth channels, before padding
+# the kernel's edges, not on the main path: M and Cout short of a tile, rne
+INT8_EDGES = [("ragged 9x9/2 32-24 rne + identity residual",
+               (3, 9, 32, 24, 3, 2, 1, None, 0.0, "fma"), 0),
+              ("tiny 5x5 16-8 signed + entry residual",
+               (1, 5, 16, 8, 1, 1, 0, None, -127.0, "mul_add"), 0)]
+
+
+def _im2col(x, k, stride, pad, out_hw):
+    """(N*Ho*Wo, K*K*Cin) int8 columns of an NHWC int8 tensor, (ky, kx, c)
+    order: the input of the library yardstick's int8 GEMM."""
+    n, h, w, c = x.shape
+    ho, wo = out_hw
+    xp = torch.zeros((n, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype,
+                     device=x.device)
+    xp[:, pad:pad + h, pad:pad + w] = x
+    taps = [xp[:, ky:ky + stride * (ho - 1) + 1:stride,
+               kx:kx + stride * (wo - 1) + 1:stride]
+            for ky in range(k) for kx in range(k)]
+    return torch.stack(taps, dim=3).reshape(n * ho * wo, k * k * c)
+
+
+def check_conv_s8(label, gen):
+    """The int8 convolution against its plain version, bit for bit, at every
+    shape of the int8 ResNet50 (N = 80) and the tiling's edges; returns its
+    JSON entry (launches filled in from the int8 main path's run)."""
+    totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0,
+              "bytes": 0}
+    shapes = int8_conv_shapes()
+    assert sum(c for *_, c in shapes) == INT8_LAUNCHES, shapes
+
+    def i8(shape, lo, hi):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
+                             dtype=torch.int32).to(torch.int8)
+
+    for label_, key, per_fwd in shapes + INT8_EDGES:
+        n, h, cin, cout, k, s, p, out_hw, lo, res_mode = key
+        ho, wo = out_hw or ops8.out_size(h, h, (k, k), s, p)
+        # the stem sees (pixel - 128); every other input is post-relu
+        x = i8((n, h, h, cin), -128 if k == 4 else 0, 128)
+        w = i8((cout, k * k * cin), -127, 128)
+        mult = torch.rand(cout, generator=gen, device="cuda") * 2e-3 + 1e-5
+        bias = torch.randn(cout, generator=gen, device="cuda") * 20
+        res = i8((n, ho, wo, cout), -127 if res_mode == "mul_add" else 0,
+                 128) if res_mode else None
+        kw = dict(ksize=(k, k), stride=s, pad=p, out_hw=out_hw, lo=lo,
+                  res=res, res_scale=0.37, res_mode=res_mode or "fma")
+        args = (x, w, mult, bias)
+        got = ops8.conv_s8(*args, **kw)
+        torch.cuda.synchronize()
+        ref = ops8.conv_s8_reference(*args, **kw)
+        err = int((got.int() - ref.int()).abs().max())
+        if not torch.equal(got, ref):
+            raise RuntimeError(
+                f"conv_s8 disagrees with its plain version at {label_}: "
+                f"{float((got == ref).float().mean()):.6f} equal, max_abs_err "
+                f"{err}")
+        ms = time_ms(lambda: ops8.conv_s8(*args, **kw))
+        plain_ms = time_ms(lambda: ops8.conv_s8_reference(*args, **kw),
+                           reps=5, warmup=1)
+        lib_ms = None
+        if per_fwd:
+            wt = w.t()
+            lib_ms = time_ms(lambda: torch._int_mm(
+                _im2col(x, k, s, p, (ho, wo)), wt))
+        # the function's channels: the stem's space-to-depth input has 12
+        # (2 x 2 pixels x RGB); the 4 more it is launched with are zeros the
+        # kernel needs (Cin % 16 == 0), not work the function asks for
+        cin_fn = STEM_S2D_CIN if k == 4 else cin
+        nops = 2 * n * ho * wo * cout * k * k * cin_fn
+        nbytes = (n * h * h * cin_fn + cout * k * k * cin_fn + 8 * cout
+                  + got.numel() * (2 if res is not None else 1))
+        bound, bound_by = bound_ms(nops, nbytes, H100_INT8_OPS)
+        log("kernel-check " + json.dumps({
+            "kernel": "conv_s8", "shape": label_, "N": n, "max_abs_err": err,
+            "bitwise_equal": 1.0, "kernel_ms": ms, "bound_ms": bound,
+            "bound_by": bound_by, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library": "im2col + torch._int_mm", "launches_per_forward":
+            per_fwd, "card": label}))
+        for key_, val in (("ms", ms), ("plain_ms", plain_ms),
+                          ("library_ms", lib_ms or 0.0), ("ops", nops),
+                          ("bytes", nbytes)):
+            totals[key_] += per_fwd * val
+        del args, x, w, res, got, ref
+    bound, bound_by = bound_ms(totals["ops"], totals["bytes"], H100_INT8_OPS)
+    return {
+        "name": "conv_s8",
+        "route": "cuda",
+        "source": "geoestimation_tpu_torch/csrc/conv_s8.cu",
+        "replaces": "geoestimation_tpu/models/quant.py:125",
+        "launches": None,  # filled from the int8 main path's run
+        "max_abs_err": 0.0,
+        "ms": totals["ms"],
+        "plain_ms": totals["plain_ms"],
+        "bound_ms": bound,
+        "bound_by": bound_by,
+        "library_ms": totals["library_ms"],
+    }
+
+
 def phase_kernels(label):
     """Each kernel against its plain version; returns the JSON entries.
     Times are per forward of 8 images x 10 crops, summed over the kernel's
     launches on its main path."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    return [check_kernel(name, label, gen) for name in SHAPES]
+    return [check_kernel(name, label, gen) for name in SHAPES] + [
+        check_conv_s8(label, gen)]
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -342,7 +497,7 @@ def phase_main_path(label, engine):
         raise RuntimeError(f"launches per forward {per_fwd} and "
                            f"{per_fwd_s2}, want {WANT_DEFAULT} and {WANT_S2}")
     return {"fused_bottleneck": default_launches,
-            "fused_bottleneck_s2": s2_launches}, fast, module
+            "fused_bottleneck_s2": s2_launches}, fast, module, fast_ips
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -389,7 +544,7 @@ def phase_host_exact(engine, module):
     ref = module.predict_batch(crops)
     same = {k: float(np.mean(preds[k][0] == ref[k][0])) for k in preds}
     log(f"host exact: predicted-class agreement fast vs module {same}")
-    return launches
+    return crops
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -526,19 +681,124 @@ def phase_server(label, fast):
             "launches_fused_bottleneck": launches[0], "card": label}
 
 
+# -- phase 6 -------------------------------------------------------------------
+
+INT8_MIN_CORR = 0.98     # per head, as tests/test_quant.py:196
+
+
+def _int8_launches(fn):
+    """(fn(), conv_s8 launches during it), the count set to 0 just before."""
+    ops8.conv_s8.launches = 0
+    out = fn()
+    return out, ops8.conv_s8.launches
+
+
+def _corr(g, r):
+    """Correlation of two logits arrays, each centered on its mean (as
+    tests/test_quant.py:196)."""
+    g, r = g.double().cpu().numpy(), r.double().cpu().numpy()
+    gc, rc = g - g.mean(), r - r.mean()
+    return float((gc * rc).sum() / (np.linalg.norm(gc) * np.linalg.norm(rc)
+                                    + 1e-12))
+
+
+def _int8_checks(name, eng, fp32, x, crops_s8, n_images):
+    """One predict_batch of an int8 engine with the count set to 0 just
+    before: 53 launches; per-crop logits equal to the plain int8 network's
+    on the same scales, the predicted classes too; per-crop logits against
+    the float32 module path's. Returns the launches."""
+    preds, launches = _int8_launches(lambda: eng.predict_batch(
+        x.cpu().numpy()))
+    log(f"int8: {name} predict_batch({n_images} images x 10 crops): "
+        f"conv_s8 launches {launches} (want {INT8_LAUNCHES})")
+    if launches != INT8_LAUNCHES:
+        raise RuntimeError(f"int8 {name}: {launches} conv_s8 launches in one "
+                           f"forward, want {INT8_LAUNCHES}")
+    _check_predictions(eng, preds, n_images)
+    plain = quant.build_int8_apply(eng._qnet, eng.int8_scales,
+                                   n_classes=eng._n_classes, device="cuda",
+                                   plain=True)
+    got, ref = eng.crop_logits(x), plain(crops_s8)
+    for head, g, r in zip(eng.pred_keys, got, ref):
+        if not torch.equal(g, r):
+            raise RuntimeError(
+                f"int8 {name}: logits differ from the plain int8 network on "
+                f"head {head}: max_abs_err {float((g - r).abs().max())}")
+    plain_preds = predict_all(
+        [mean_tta_logits(r, 10, fold=eng.tta_fold) for r in ref], eng.harrays)
+    for key, (cls, _, _) in preds.items():
+        if not np.array_equal(cls, plain_preds[key][0].cpu().numpy()):
+            raise RuntimeError(f"int8 {name}: classes differ from the plain "
+                               f"int8 network's on {key}")
+    corrs = {}
+    for head, g, r in zip(eng.pred_keys, got, fp32.crop_logits(x)):
+        corrs[head] = _corr(g, r)
+        agree = float((g.argmax(-1) == r.argmax(-1)).float().mean())
+        log(f"int8: {name} vs float32 module logits, head {g.shape[-1]} "
+            f"classes: correlation {corrs[head]:.6f}, per-crop argmax "
+            f"agreement {agree:.4f}")
+    if min(corrs.values()) < INT8_MIN_CORR:
+        raise RuntimeError(f"int8 {name}: logit correlation {corrs} under "
+                           f"{INT8_MIN_CORR}")
+    return launches
+
+
+def phase_int8(label, engine, fast_ips, host_crops):
+    """The int8 serving path on the full-width world (module docs, 6);
+    returns conv_s8's launches in the main path's forward."""
+    rng = np.random.default_rng(world.SEED + 1)     # phase 3's images
+    images = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    batch = rng.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8)
+    x = torch.as_tensor(images, device="cuda")
+    fp32 = engine(fast=False, dtype=torch.float32)
+    t0 = time.perf_counter()
+    int8 = engine(int8=True)
+    int8.predict_batch(images)                      # calibrates: auto
+    log(f"int8: built and calibrated on its first batch in "
+        f"{time.perf_counter() - t0:.1f} s: source "
+        f"{int8.int8_calib_source}, stat {int8.int8_calib_stat}, KL "
+        f"{json.dumps(int8.int8_calib_kls)}")
+    launches = _int8_checks("device ten-crop", int8, fp32, x,
+                            eval_pipeline_s8(x), len(images))
+    int8_ips, n = _int8_launches(lambda: _images_per_s(int8, batch))
+    log("int8 throughput " + json.dumps({
+        "metric": "predict_batch ten-crop images/s", "batch": 64,
+        "int8": int8_ips, "bf16_fast_pallas_phase3": fast_ips,
+        "launches_per_forward": n / 6,
+        "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "card": label}))
+    if n != 6 * INT8_LAUNCHES:
+        raise RuntimeError(f"int8: {n} conv_s8 launches in 6 forwards")
+
+    # --exact_tta --precision 8: phase 4's host ten-crops, 5-D batches
+    exact = engine(int8=True, tta_mode="host_exact")
+    exact.predict_batch(host_crops)                 # calibrates on 5-D
+    log(f"int8 host exact: calibrated on host crops {host_crops.shape}: "
+        f"stat {exact.int8_calib_stat}")
+    hx = torch.as_tensor(host_crops, device="cuda")
+    _int8_checks("host_exact", exact,
+                 engine(fast=False, dtype=torch.float32,
+                        tta_mode="host_exact"),
+                 hx, shift_s8(hx.reshape((-1,) + hx.shape[-3:])),
+                 len(host_crops))
+    return launches
+
+
 def main():
     t0 = time.perf_counter()
     label = phase_device()
     kernels = phase_kernels(label)
     config, sd, parts = world.build_world()
 
-    def engine(device="cuda", **kw):
+    def engine(device="cuda", dtype=torch.bfloat16, **kw):
         return InferenceEngine(config, sd, partitionings=parts, n_crops=10,
-                               dtype=torch.bfloat16, device=device, **kw)
+                               dtype=dtype, device=device, **kw)
 
-    launches, fast, module = phase_main_path(label, engine)
-    phase_host_exact(engine, module)
+    launches, fast, module, fast_ips = phase_main_path(label, engine)
+    host_crops = phase_host_exact(engine, module)
     server_line = phase_server(label, fast)
+    del fast, module
+    launches["conv_s8"] = phase_int8(label, engine, fast_ips, host_crops)
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
     log(f"card: {label}; wall {time.perf_counter() - t0:.1f} s")

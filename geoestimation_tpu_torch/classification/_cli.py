@@ -16,11 +16,6 @@ import torch
 NOT_PORTED = {
     "feature_tta": (False, "TTA variants"),
     "feature_tta_level": (3, "TTA variants"),
-    "calib_dir": (None, "int8 serving path"),
-    "calib_images": (64, "int8 serving path"),
-    "calib_stat": ("auto", "int8 serving path"),
-    "calib_headroom": (1.0, "int8 serving path"),
-    "recalibrate": (False, "int8 serving path"),
     "coordinator": (None, "Training"),
     "num_processes": (None, "Training"),
     "process_id": (None, "Training"),
@@ -39,8 +34,9 @@ def add_shared_args(p: argparse.ArgumentParser):
     p.add_argument("--crops", type=int, default=10, choices=[1, 5, 10],
                    help="TTA crops per image")
     p.add_argument("--precision", type=int, default=16, choices=[8, 16, 32],
-                   help="16=bfloat16 backbone, 32=float32 (8, int8, is not "
-                        "ported yet)")
+                   help="16=bfloat16 backbone, 32=float32, 8=int8 PTQ "
+                        "serving precision (models/quant.py; calibrated on "
+                        "the first batch)")
     p.add_argument("--gpu", action="store_true",
                    help="accepted for reference CLI compatibility; the port "
                         "runs on CUDA by default")
@@ -67,24 +63,50 @@ def add_shared_args(p: argparse.ArgumentParser):
     p.add_argument("--feature_tta", action="store_true", help=not_ported)
     p.add_argument("--feature_tta_level", type=int, default=3,
                    choices=[1, 2, 3], help=not_ported)
-    p.add_argument("--calib_dir", default=None, help=not_ported)
-    p.add_argument("--calib_images", type=int, default=64, help=not_ported)
-    p.add_argument("--calib_stat", default="auto",
-                   choices=["auto", "absmax", "p999", "p9999"],
-                   help=not_ported)
-    p.add_argument("--calib_headroom", type=float, default=1.0,
-                   help=not_ported)
-    p.add_argument("--recalibrate", action="store_true", help=not_ported)
+    add_calib_args(p)
     p.add_argument("--coordinator", default=None, help=not_ported)
     p.add_argument("--num_processes", type=int, default=None, help=not_ported)
     p.add_argument("--process_id", type=int, default=None, help=not_ported)
 
 
+def add_calib_args(p: argparse.ArgumentParser):
+    """The int8 calibration flags (`--precision 8`), as the JAX CLIs."""
+    p.add_argument("--calib_dir", default=None,
+                   help="with --precision 8: deterministic calibration "
+                        "set (first --calib_images of this dir in sorted "
+                        "order); recalibrates unless the scales cache was "
+                        "made from this set at these settings")
+    p.add_argument("--calib_images", type=int, default=64,
+                   help="images drawn from --calib_dir")
+    p.add_argument("--calib_stat", default="auto",
+                   choices=["auto", "absmax", "p999", "p9999"],
+                   help="activation-range statistic; 'auto' (default) "
+                        "scores absmax/p999/p9999 against the fp32 "
+                        "forward on the calibration images and ships "
+                        "the winner (models/quant.py autoselect_scales)")
+    p.add_argument("--calib_headroom", type=float, default=1.0,
+                   help="scale multiplier >1 trades resolution for "
+                        "clipping margin")
+    p.add_argument("--recalibrate", action="store_true",
+                   help="with --precision 8: ignore any cached "
+                        "int8_scales.json")
+
+
+def int8_kwargs(args, persist=True):
+    """The engine's int8 arguments from the parsed flags; the scales cache
+    sits next to the checkpoint."""
+    from ..eval.engine import default_scales_path
+
+    return dict(int8=args.precision == 8,
+                int8_scales_path=default_scales_path(args.checkpoint),
+                calib_dir=args.calib_dir, calib_images=args.calib_images,
+                calib_stat=args.calib_stat,
+                calib_headroom=args.calib_headroom, int8_persist=persist,
+                int8_recalibrate=args.recalibrate)
+
+
 def check_ported(args, not_ported=NOT_PORTED):
     """Exit with a clear message on a flag the port does not have yet."""
-    if args.precision == 8:
-        raise SystemExit("--precision 8 (int8 serving) is not ported yet "
-                         "(ROADMAP.md Queue 1, 'int8 serving path')")
     for flag, (default, item) in not_ported.items():
         if getattr(args, flag) != default:
             raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
@@ -111,4 +133,5 @@ def make_engine(args, use_pallas=False):
         tta_fold=args.tta_fold,
         fast_decode=args.fast_decode,
         device="cpu" if args.cpu else "cuda",
+        **int8_kwargs(args),
     )

@@ -3,10 +3,11 @@
 The port of `geoestimation_tpu/eval/engine.py` (device TTA and host-exact
 ten-crop). One forward takes the uint8 host batch to the device, normalizes
 and crops it there (or only normalizes the host's exact ten-crops),
-runs the classifier -- the module path, or the BN-folded fast path with the
-fused CUDA bottleneck kernel -- folds the crops, applies the f* rule, and
-returns predicted classes and coordinates for every partitioning key plus
-'hierarchy' in one small transfer.
+runs the classifier -- the module path, the BN-folded fast path with the
+fused CUDA bottleneck kernel, or the int8 path (`models/quant.py`, every
+conv on the int8 CUDA kernel, calibrated on first use) -- folds the crops,
+applies the f* rule, and returns predicted classes and coordinates for
+every partitioning key plus 'hierarchy' in one small transfer.
 
 Runs on CUDA unless `device="cpu"` is asked for; there is no fallback from
 one to the other.
@@ -21,7 +22,12 @@ import numpy as np
 import torch
 
 from ..geo import Hierarchy, load_partitionings
-from ..ingest.pipeline import eval_pipeline, normalize
+from ..ingest.pipeline import (
+    eval_pipeline,
+    eval_pipeline_s8,
+    normalize,
+    shift_s8,
+)
 from ..models.classifier import MultiPartitioningClassifier
 from .infer import TTA_FOLDS, HierarchyArrays, mean_tta_logits, predict_all
 from .metrics import DEFAULT_THRESHOLDS_KM, GcdAccumulator, gcd_threshold_counts
@@ -46,6 +52,14 @@ def resolve_partitioning_paths(files: Sequence[str],
                 f"partitioning file {f!r} not found in {list(search_dirs)}"
             )
     return out
+
+
+def default_scales_path(checkpoint: str) -> str:
+    """Conventional location of the cached int8 activation scales: next to
+    the checkpoint (`<ckpt_dir>/int8_scales.json`)."""
+    d = checkpoint if os.path.isdir(checkpoint) else os.path.dirname(
+        os.path.abspath(checkpoint))
+    return os.path.join(d, "int8_scales.json")
 
 
 def _not_ported(what, item):
@@ -84,6 +98,13 @@ class InferenceEngine:
         tta_mode: str = "device",
         tta_fold: str = "prob_mean",
         int8: bool = False,
+        int8_scales_path: Optional[str] = None,
+        calib_dir: Optional[str] = None,
+        calib_images: int = 64,
+        calib_stat: str = "auto",
+        calib_headroom: float = 1.0,
+        int8_persist: bool = True,
+        int8_recalibrate: bool = False,
         fast_decode: bool = False,
         device="cuda",
     ):
@@ -102,10 +123,25 @@ class InferenceEngine:
         host ten-crop of the full resized rectangle, for parity on
         non-square images; forces n_crops=10). tta_fold: how per-crop
         logits combine (eval.infer.mean_tta_logits). fast_decode: scaled
-        DCT JPEG decode on the host. device: 'cuda' (default) or 'cpu'.
+        DCT JPEG decode on the host (calibration batches too). device:
+        'cuda' (default) or 'cpu'.
+
+        int8: post-training int8 quantization (`models/quant.py`); `dtype`
+        and `fast` are then unused. Calibration source, in priority order:
+        `calib_dir` (the first `calib_images` images of the dir in sorted
+        order; recalibrates unless the cache proves it was made from this
+        set at these settings), else a valid scales cache at
+        `int8_scales_path` (v2 format, `quant.pack_scales`: trusted only for
+        the same weights hash, pixel pipeline and settings), else the first
+        batch. The scales are written back to the cache unless
+        `int8_persist` is False or the source had fewer than
+        MIN_DISTINCT_FOR_PERSIST distinct images; a first-batch calibration
+        does not replace a cache made from a `calib_dir` unless
+        `int8_recalibrate`. calib_stat: 'auto' (default: the statistic whose
+        int8 forward best matches the float32 one, `quant.
+        autoselect_scales`) | 'absmax' | 'p999' | 'p9999'; calib_headroom:
+        scale multiplier; int8_recalibrate: ignore any cache.
         """
-        if int8:
-            _not_ported("int8 serving", "int8 serving path")
         if layout is not None:
             _not_ported("sharded eval (layout)", "Training")
         if tta_mode == "feature":
@@ -139,7 +175,25 @@ class InferenceEngine:
         n_classes = tuple(len(p) for p in partitionings)
         self.model = None
         self._fast_apply = None
-        if fast:
+        self._int8 = int8
+        self._int8_apply = None   # built at the first batch, after calibration
+        if int8:
+            from ..models.quant import quantize_model, weights_hash
+
+            self.model_arch = mp.arch
+            self._state_dict = state_dict
+            self._qnet = quantize_model(state_dict, mp.arch)
+            self._qhash = weights_hash(self._qnet)
+            self._n_classes = n_classes
+            self._int8_scales_path = int8_scales_path
+            self._calib_dir = calib_dir
+            self._calib_images = calib_images
+            self._calib_stat = calib_stat
+            self._calib_headroom = calib_headroom
+            self._int8_persist = int8_persist
+            self._int8_recalibrate = int8_recalibrate
+            self.int8_calib_kls = None   # {stat: KL} of an 'auto' calibration
+        elif fast:
             # The fold computes in bf16; refuse a float32 request instead of
             # returning bf16 results labeled fp32.
             if dtype != torch.bfloat16:
@@ -160,11 +214,220 @@ class InferenceEngine:
             self.model = model.to(
                 self.device, memory_format=torch.channels_last).eval()
 
+    # -- int8: calibration and the scales cache ---------------------------------
+
+    def _calib_dir_fingerprint(self):
+        """Identity of the calibration set: sha256 over the sorted first
+        `calib_images` file names and sizes of `calib_dir`."""
+        import hashlib
+
+        from ..data.image_folder import list_images
+
+        h = hashlib.sha256()
+        for p in list_images(self._calib_dir)[:self._calib_images]:
+            h.update(os.path.basename(p).encode())
+            h.update(str(os.path.getsize(p)).encode())
+        return h.hexdigest()[:16]
+
+    def _calib_dir_batches(self):
+        """The first `calib_images` decodable images of `calib_dir` in
+        sorted-name order, as uint8 base batches, and their count."""
+        from ..data.image_folder import iter_image_folder
+
+        batches, n = [], 0
+        for fb in iter_image_folder(self._calib_dir, batch_size=32,
+                                    fast_decode=self._fast_decode):
+            good = fb.images[np.asarray(fb.valid)]
+            take = min(self._calib_images - n, len(good))
+            if take:
+                batches.append(good[:take])
+                n += take
+            if n >= self._calib_images:
+                break
+        if n == 0:
+            raise FileNotFoundError(
+                f"calib_dir {self._calib_dir!r}: no decodable images")
+        return batches, n
+
+    def _stat_matches(self, prov_stat) -> bool:
+        """True iff a cache's provenance stat satisfies the requested one;
+        'auto' accepts any 'auto:<picked>' cache (the pick is a function of
+        the weights, the set and the headroom, which the other checks
+        pin)."""
+        if prov_stat == self._calib_stat:
+            return True
+        return (self._calib_stat == "auto" and isinstance(prov_stat, str)
+                and prov_stat.startswith("auto:"))
+
+    def _calibrate_batches(self, batches, n_crops=None):
+        """(scales, stat for the provenance) from uint8 base batches at the
+        requested stat; 'auto' records 'auto:<picked>'."""
+        from ..models import quant
+
+        if n_crops is None:
+            n_crops = self.n_crops
+        if self._calib_stat == "auto":
+            scales, picked, kls = quant.autoselect_scales(
+                self._state_dict, batches, self._qnet, arch=self.model_arch,
+                n_classes=self._n_classes, n_crops=n_crops, crop=self.crop,
+                headroom=self._calib_headroom, device=self.device)
+            print("int8: auto calibration picked stat=" + picked
+                  + " (parity-proxy KL "
+                  + ", ".join(f"{s}={kls[s]:.5f}" for s in kls) + ")",
+                  flush=True)
+            self.int8_calib_kls = kls
+            return scales, f"auto:{picked}"
+        scales = quant.calibrate(self._state_dict, batches, self.model_arch,
+                                 n_crops=n_crops, crop=self.crop,
+                                 stat=self._calib_stat,
+                                 headroom=self._calib_headroom,
+                                 device=self.device)
+        return scales, self._calib_stat
+
+    # Persist first-batch scales only when calibrated on a varied sample: a
+    # serving micro-batch padded from one image must not become the cache.
+    MIN_DISTINCT_FOR_PERSIST = 6
+
+    def _read_cache(self, path, fingerprint):
+        """(scales, provenance) of a trusted cache at `path`, else
+        (None, None), saying why once. The JAX package's trust rules: the
+        weights hash; the pixel pipeline and the stat and headroom (except
+        for trained 'qat'/'distill' scales); with calib_dir, a calib_dir
+        cache of this very set."""
+        import json
+
+        from ..models.quant import unpack_scales
+
+        try:
+            with open(path) as f:
+                obj = json.load(f)
+        except (json.JSONDecodeError, OSError):
+            return None, None
+        scales, prov = unpack_scales(obj, self.model_arch,
+                                     expect_hash=self._qhash)
+        why = prov
+        if scales is not None:
+            trained = prov.get("source") in ("qat", "distill")
+            if not trained and not (
+                    prov.get("fast_decode") == bool(self._fast_decode)
+                    and prov.get("crop") == self.crop
+                    and prov.get("n_crops") == self.n_crops):
+                scales, why = None, ("cache calibrated under a different "
+                                     "pixel pipeline")
+            elif not trained and not (
+                    self._stat_matches(prov.get("stat"))
+                    and prov.get("headroom") == self._calib_headroom):
+                scales, why = None, (
+                    "cache calibrated at different settings (stat="
+                    f"{prov.get('stat')!r}, headroom={prov.get('headroom')!r}"
+                    f"; requested {self._calib_stat!r}@"
+                    f"{self._calib_headroom!r})")
+            elif self._calib_dir and trained:
+                print("int8: keeping the checkpoint's trained "
+                      f"{prov['source']} scales; --calib_dir is ignored for "
+                      "trained-against scales (use --recalibrate to "
+                      "override)", flush=True)
+            elif self._calib_dir and not (
+                    prov.get("source") == "calib_dir"
+                    and prov.get("calib_fingerprint") == fingerprint):
+                scales, why = None, ("cache not from this calibration "
+                                     "set/settings")
+        if scales is None:
+            print(f"int8: ignoring scales cache {path}: {why}", flush=True)
+            return None, None
+        return scales, prov
+
+    def _write_cache(self, path, scales, source, n_images, stat, fingerprint):
+        """Atomic write of the scales cache. A first-batch calibration does
+        not replace a calib_dir-made cache unless int8_recalibrate (the JAX
+        package replaces it, ROADMAP.md Queue 3)."""
+        import json
+
+        from ..models.quant import pack_scales
+
+        try:
+            with open(path) as f:
+                old_src = json.load(f).get("provenance", {}).get("source")
+        except (OSError, json.JSONDecodeError, AttributeError):
+            old_src = None
+        if (source == "first_batch" and old_src == "calib_dir"
+                and not self._int8_recalibrate):
+            print(f"int8: not replacing the calib_dir scales cache at {path} "
+                  "with first-batch scales (pass --recalibrate to replace "
+                  "it)", flush=True)
+            return
+        if old_src in ("qat", "distill"):
+            print(f"int8: WARNING -- overwriting {old_src}-trained scales at "
+                  f"{path} with a fresh {source} calibration (--recalibrate); "
+                  "the trained scales have no other copy", flush=True)
+        try:
+            tmp = f"{path}.tmp.{os.getpid()}"
+            with open(tmp, "w") as f:
+                json.dump(pack_scales(
+                    scales, weights_hash=self._qhash, source=source,
+                    n_images=n_images, stat=stat,
+                    headroom=self._calib_headroom,
+                    calib_fingerprint=fingerprint,
+                    fast_decode=bool(self._fast_decode), crop=self.crop,
+                    n_crops=self.n_crops), f, indent=1, sort_keys=True)
+            os.replace(tmp, path)
+        except OSError:
+            pass  # read-only checkpoint dir: recalibrate next run
+
+    def _build_int8(self, images_u8):
+        """Calibrate (calib_dir > valid cache > this first batch, a uint8
+        numpy array) and build the int8 forward."""
+        from ..models.quant import build_int8_apply
+
+        fingerprint = (self._calib_dir_fingerprint() if self._calib_dir
+                       else None)
+        path = self._int8_scales_path
+        scales = prov = None
+        n_images = 0
+        if path and os.path.exists(path) and not self._int8_recalibrate:
+            scales, prov = self._read_cache(path, fingerprint)
+        if scales is not None:
+            source, stat_used = "cache", prov.get("stat")
+        elif self._calib_dir:
+            batches, n_images = self._calib_dir_batches()
+            scales, stat_used = self._calibrate_batches(batches)
+            source = "calib_dir"
+        else:
+            arr = np.asarray(images_u8)
+            # distinct images over the leading axis: a host-cropped image is
+            # one image however many crops it has
+            n_images = len({im.tobytes() for im in arr})
+            n_crops = self.n_crops
+            if arr.ndim == 5:
+                arr, n_crops = arr.reshape((-1,) + arr.shape[-3:]), 1
+            scales, stat_used = self._calibrate_batches([arr], n_crops)
+            source = "first_batch"
+        if (path and source != "cache" and self._int8_persist
+                and (source == "calib_dir"
+                     or n_images >= self.MIN_DISTINCT_FOR_PERSIST)):
+            self._write_cache(path, scales, source, n_images, stat_used,
+                              fingerprint)
+        self.int8_calib_source = source
+        self.int8_calib_stat = stat_used
+        self.int8_scales = scales
+        self._int8_apply = build_int8_apply(
+            self._qnet, scales, n_classes=self._n_classes, device=self.device)
+
     @torch.inference_mode()
     def crop_logits(self, images_u8):
         """uint8 (B, base, base, 3) tensor on the engine's device, or host
         crops (B, n_crops, crop, crop, 3) -> list of per-head
-        (B * n_crops, C) float32 logits."""
+        (B * n_crops, C) float32 logits. An int8 engine calibrates on these
+        images if it has not yet."""
+        if self._int8:
+            if self._int8_apply is None:
+                self._build_int8(images_u8.cpu().numpy())
+            if images_u8.ndim == 5:
+                x = shift_s8(images_u8.reshape((-1,) + images_u8.shape[-3:]))
+            else:
+                x = eval_pipeline_s8(images_u8, n_crops=self.n_crops,
+                                     crop=self.crop)
+            return self._int8_apply(x.contiguous())
         if images_u8.ndim == 5:
             # host-precropped: normalize only, crops folded into the batch
             x = normalize(images_u8.reshape((-1,) + images_u8.shape[-3:]),
@@ -201,7 +464,10 @@ class InferenceEngine:
     def predict_batch(self, images_u8: np.ndarray):
         """uint8 (B, base, base, 3), or (B, 10, crop, crop, 3) host crops
         -> {p_key: (cls, lat, lng)} numpy."""
-        images = torch.as_tensor(np.asarray(images_u8)).to(self.device)
+        images_u8 = np.asarray(images_u8)
+        if self._int8 and self._int8_apply is None:
+            self._build_int8(images_u8)
+        images = torch.as_tensor(images_u8).to(self.device)
         flat = self._forward(images).cpu().numpy()
         return {
             k: (flat[i, 0].astype(np.int64), flat[i, 1], flat[i, 2])

@@ -68,3 +68,17 @@ def eval_pipeline(images_u8, n_crops=10, crop=224, dtype=torch.bfloat16):
     x = normalize(images_u8, dtype)
     crops = make_crops(x, n_crops, crop)
     return crops.reshape((-1,) + tuple(crops.shape[-3:]))
+
+
+def shift_s8(images_u8):
+    """uint8 pixels -> (pixel - 128) int8, exact: the int8 network's input
+    (its stem folds the normalization in)."""
+    return (images_u8.to(torch.int16) - 128).to(torch.int8)
+
+
+def eval_pipeline_s8(images_u8, n_crops=10, crop=224):
+    """uint8 (B, base, base, 3) -> (pixel - 128) int8 crops
+    (B*n_crops, crop, crop, 3), contiguous NHWC, crops of one image adjacent:
+    the int8 serving path's input (`models/quant.py`)."""
+    crops = make_crops(shift_s8(images_u8), n_crops, crop)
+    return crops.reshape((-1,) + tuple(crops.shape[-3:])).contiguous()

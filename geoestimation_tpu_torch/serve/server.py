@@ -30,7 +30,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..classification._cli import NOT_PORTED as CLI_NOT_PORTED
-from ..classification._cli import check_ported
+from ..classification._cli import add_calib_args, check_ported, int8_kwargs
 
 
 class _Pending:
@@ -248,8 +248,7 @@ class GeoInferenceServer:
 # flag -> (default, ROADMAP.md Queue 1 item that ports it)
 NOT_PORTED = {
     **{flag: CLI_NOT_PORTED[flag] for flag in (
-        "feature_tta", "feature_tta_level", "calib_dir", "calib_images",
-        "calib_stat", "calib_headroom", "recalibrate")},
+        "feature_tta", "feature_tta_level")},
     "shard_batch": (False, "Training"),
 }
 
@@ -270,12 +269,15 @@ def build_parser():
     p.add_argument("--fast", action="store_true",
                    help="fold BatchNorm into bf16 conv weights at load")
     p.add_argument("--precision", type=int, default=16, choices=[8, 16, 32],
-                   help="16=bfloat16 backbone, 32=float32 (8, int8, is not "
-                        "ported yet)")
+                   help="16=bfloat16 backbone, 32=float32, 8=int8 PTQ "
+                        "serving precision (models/quant.py; calibrated on "
+                        "the first batch)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of CUDA")
     p.add_argument("--warmup", action="store_true",
-                   help="run one full-size batch before accepting traffic")
+                   help="run one full-size batch before accepting traffic "
+                        "(with --precision 8, the calibration too: on "
+                        "noise, never cached, without --calib_dir)")
     p.add_argument("--fast_decode", action="store_true",
                    help="scaled DCT JPEG decode for request images (faster "
                         "on large photos; slightly different pixels)")
@@ -283,14 +285,7 @@ def build_parser():
     p.add_argument("--feature_tta", action="store_true", help=not_ported)
     p.add_argument("--feature_tta_level", type=int, default=3,
                    choices=[1, 2, 3], help=not_ported)
-    p.add_argument("--calib_dir", default=None, help=not_ported)
-    p.add_argument("--calib_images", type=int, default=64, help=not_ported)
-    p.add_argument("--calib_stat", default="auto",
-                   choices=["auto", "absmax", "p999", "p9999"],
-                   help=not_ported)
-    p.add_argument("--calib_headroom", type=float, default=1.0,
-                   help=not_ported)
-    p.add_argument("--recalibrate", action="store_true", help=not_ported)
+    add_calib_args(p)
     p.add_argument("--shard_batch", action="store_true", help=not_ported)
     return p
 
@@ -307,6 +302,11 @@ def main(argv=None):
     check_ported(args, NOT_PORTED)  # before the checkpoint load
     config, state_dict = load_checkpoint(args.checkpoint,
                                          hparams_path=args.hparams)
+    # A synthetic int8 warmup (no --calib_dir) may calibrate on noise: fit
+    # to serve behind an explicit flag, but never cached, so it cannot
+    # poison a later run that trusts the cache.
+    synthetic_calib = (args.precision == 8 and args.warmup
+                       and not args.calib_dir)
     engine = InferenceEngine(
         config, state_dict, n_crops=args.crops, fast=args.fast,
         dtype=torch.float32 if args.precision == 32 else torch.bfloat16,
@@ -314,12 +314,25 @@ def main(argv=None):
         search_dirs=[os.path.dirname(os.path.abspath(args.checkpoint)),
                      args.checkpoint, os.getcwd()],
         device="cpu" if args.cpu else "cuda",
+        **int8_kwargs(args, persist=not synthetic_calib),
     )
-    if args.warmup:
+    if args.warmup or args.calib_dir:
         t0 = time.time()
-        engine.predict_batch(np.zeros((args.batch_size, 256, 256, 3),
-                                      np.uint8))
-        print(f"warmup done in {time.time() - t0:.1f}s", flush=True)
+        if synthetic_calib:
+            print("WARNING: int8 warmup on synthetic noise -- pass "
+                  "--calib_dir with domain images for representative "
+                  "activation scales (these will not be cached)", flush=True)
+            batch = np.random.default_rng(0).integers(
+                0, 255, (args.batch_size, 256, 256, 3), dtype=np.uint8)
+        else:
+            # an int8 engine calibrates from calib_dir itself; any batch
+            # builds it
+            batch = np.zeros((args.batch_size, 256, 256, 3), np.uint8)
+        engine.predict_batch(batch)
+        print(f"warmup done in {time.time() - t0:.1f}s "
+              f"(calibrated={args.precision == 8}, "
+              f"source={getattr(engine, 'int8_calib_source', None)})",
+              flush=True)
 
     server = GeoInferenceServer(engine, host=args.host, port=args.port,
                                 batch_size=args.batch_size,

@@ -12,8 +12,10 @@ eagerly, so unlike XLA nothing is fused across a cut point and the deltas
 are the stages' own times.
 
 Variants (build_fast_apply keywords as `bench_kernels`' e2e): noPallas, L1,
-L2, L1L2, L1L2-s2 (default: all). It runs on a CUDA card only and raises
-without one.
+L2, L1L2, L1L2-s2, and int8: the int8 path (`models/quant.py`, every conv
+on `conv_s8`), its ingest `eval_pipeline_s8`, its scales an absmax
+calibration on the first 8 images (default: all). It runs on a CUDA card
+only and raises without one.
 """
 
 from __future__ import annotations
@@ -24,7 +26,8 @@ import sys
 import numpy as np
 import torch
 
-from ..ingest.pipeline import eval_pipeline
+from ..ingest.pipeline import eval_pipeline, eval_pipeline_s8
+from ..models import quant
 from ..models.fast_infer import build_fast_apply
 from . import world
 from .bench_kernels import FAST_VARIANTS
@@ -32,18 +35,27 @@ from .card import card_label, require_cuda, time_ms
 
 VARIANTS = {name.removeprefix("fast-"): kw
             for name, kw in FAST_VARIANTS.items()}
+VARIANTS["int8"] = None
 PREFIXES = ("ingest", "stem", "layer1", "layer2", "layer3", "layer4", "head")
 
 
-def stage_prefix(apply, k, n_crops=10):
-    """uint8 images -> the output of ingest and the first k stage functions;
-    past the last stage, the head's logits."""
+def bf16_ingest(images_u8, n_crops):
+    return eval_pipeline(images_u8, n_crops=n_crops, crop=224,
+                         dtype=torch.bfloat16)
+
+
+def s8_ingest(images_u8, n_crops):
+    return eval_pipeline_s8(images_u8, n_crops=n_crops, crop=224)
+
+
+def stage_prefix(apply, ingest, k, n_crops=10):
+    """uint8 images -> the output of `ingest` and the first k stage
+    functions; past the last stage, the head's logits."""
     stage_fns = apply.stage_fns
 
     @torch.inference_mode()
     def run(images_u8):
-        x = eval_pipeline(images_u8, n_crops=n_crops, crop=224,
-                          dtype=torch.bfloat16)
+        x = ingest(images_u8, n_crops)
         for fn in stage_fns[:k]:
             x = fn(x)
         return apply.head_logits(x) if k > len(stage_fns) else x
@@ -51,12 +63,25 @@ def stage_prefix(apply, k, n_crops=10):
     return run
 
 
+def int8_apply(sd, images):
+    """The int8 path on the card, calibrated (absmax) on 8 of `images`."""
+    scales = quant.calibrate(sd, [images[:8].cpu().numpy()], world.ARCH,
+                             stat="absmax", device="cuda")
+    return quant.build_int8_apply(quant.quantize_model(sd, world.ARCH),
+                                  scales, n_classes=world.REAL_CLASS_COUNTS,
+                                  device="cuda")
+
+
 def bench_variant(name, sd, images, label, reps=10):
-    apply = build_fast_apply(sd, world.ARCH, n_classes=world.REAL_CLASS_COUNTS,
-                             device="cuda", **VARIANTS[name])
+    if name == "int8":
+        apply, ingest = int8_apply(sd, images), s8_ingest
+    else:
+        apply, ingest = build_fast_apply(
+            sd, world.ARCH, n_classes=world.REAL_CLASS_COUNTS, device="cuda",
+            **VARIANTS[name]), bf16_ingest
     prev = 0.0
     for k, stage in enumerate(PREFIXES):
-        run = stage_prefix(apply, k)
+        run = stage_prefix(apply, ingest, k)
         ms = time_ms(lambda: run(images), reps=reps)
         print("bench_stages " + json.dumps({
             "variant": name, "prefix": stage, "cum_ms": ms,

@@ -11,6 +11,7 @@ import torch
 from ..eval.engine import resolve_device
 
 H100_BF16_FLOPS = 989e12      # dense bf16 tensor-core peak, H100 SXM
+H100_INT8_OPS = 1979e12       # dense int8 tensor-core peak, H100 SXM
 H100_BYTES_PER_S = 3.35e12    # HBM3 rate, H100 SXM
 
 
@@ -49,10 +50,11 @@ def time_ms(fn, reps=20, warmup=3):
     return float(np.median(times))
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, nbytes, peak=H100_BF16_FLOPS):
     """(least time in ms, 'operations' or 'bytes'): the larger of the
-    operations over the bf16 peak and the bytes over the memory rate."""
-    flop_ms = 1e3 * flops / H100_BF16_FLOPS
+    operations over the `peak` rate (bf16 by default) and the bytes over
+    the memory rate."""
+    flop_ms = 1e3 * flops / peak
     byte_ms = 1e3 * nbytes / H100_BYTES_PER_S
     return max(flop_ms, byte_ms), ("bytes" if byte_ms >= flop_ms
                                    else "operations")

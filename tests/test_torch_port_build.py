@@ -74,16 +74,24 @@ def test_flags_are_in_the_key(csrc, monkeypatch):
 
 
 def test_the_kernels_share_one_core_and_call_no_library():
-    """Both fused-bottleneck sources include the shared sm_90a core, keep no
-    copy of its helpers, and reach no library kernel."""
-    assert build.sources() == ["fused_bottleneck", "fused_bottleneck_s2"]
+    """Both fused-bottleneck sources include the shared sm_90a core and keep
+    no copy of its helpers; the int8 convolution stands alone, on s8
+    mma.sync with its epilogue's fmas written out; none reaches a library
+    kernel."""
+    fused = ["fused_bottleneck", "fused_bottleneck_s2"]
+    assert build.sources() == ["conv_s8"] + fused
     core = (build.CSRC_DIR / "bottleneck_sm90.cuh").read_text()
     assert "wgmma.mma_async" in core and "cp.async.bulk.tensor" in core
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
-    for name in build.sources():
+    for name in fused:
         text = (build.CSRC_DIR / f"{name}.cu").read_text()
         assert '#include "bottleneck_sm90.cuh"' in text
         for copied in ("wgmma.mma_async", "mbarrier.init", "mma.sync"):
             assert copied not in text, (name, copied)
+    conv = (build.CSRC_DIR / "conv_s8.cu").read_text()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in conv
+    assert "__fmaf_rn" in conv and "__fmul_rn" in conv and "__fadd_rn" in conv
+    for name in build.sources():
+        text = (build.CSRC_DIR / f"{name}.cu").read_text()
         for library in ("cublas", "cudnn", "cutlass", "cute/"):
             assert library not in text.lower(), (name, library)

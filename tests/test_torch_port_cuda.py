@@ -230,3 +230,105 @@ def test_server_answers_as_predict_batch(cuda):
             assert answers[start + j] == {
                 k: {"class": int(c[j]), "lat": float(la[j]),
                     "lng": float(ln[j])} for k, (c, la, ln) in ref.items()}
+
+
+# -- the int8 convolution (csrc/conv_s8.cu) ------------------------------------
+
+port_conv = importlib.import_module("geoestimation_tpu_torch.ops.conv_s8")
+
+
+def conv_args(n, h, cin, cout, k, stride, pad, out_hw, res_mode, device,
+              seed=0):
+    rng = np.random.default_rng(seed)
+
+    def i8(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+            np.int8)).to(device)
+
+    ho, wo = out_hw or port_conv.out_size(h, h, (k, k), stride, pad)
+    x, w = i8((n, h, h, cin), -128, 128), i8((cout, k * k * cin), -127, 128)
+    mult = torch.from_numpy(rng.uniform(1e-5, 2e-3, cout).astype(
+        np.float32)).to(device)
+    bias = torch.from_numpy(rng.normal(0, 20, cout).astype(np.float32)).to(
+        device)
+    res = i8((n, ho, wo, cout), -127, 128) if res_mode else None
+    return (x, w, mult, bias), dict(ksize=(k, k), stride=stride, pad=pad,
+                                    out_hw=out_hw, res=res, res_scale=0.37,
+                                    res_mode=res_mode or "fma")
+
+
+@pytest.mark.parametrize("shape, lo, rne, res_mode", [
+    # the stem: a VALID 4x4 conv over the space-to-depth buffer, sliced
+    ((4, 116, 16, 64, 4, 1, 0, (112, 112)), 0.0, False, None),
+    ((4, 56, 64, 64, 3, 1, 1, None), 0.0, False, None),        # 3x3 requant
+    ((4, 56, 64, 256, 1, 1, 0, None), -127.0, False, None),    # signed _y3
+    ((4, 56, 256, 64, 1, 1, 0, None), 0.0, True, None),        # rne
+    ((4, 56, 64, 256, 1, 1, 0, None), 0.0, False, "fma"),      # identity tail
+    ((4, 56, 256, 512, 1, 2, 0, None), 0.0, False, "mul_add"),  # entry tail
+    ((4, 56, 128, 128, 3, 2, 1, None), 0.0, True, None),       # 3x3 stride 2
+    ((2, 7, 512, 512, 3, 1, 1, None), 0.0, False, None),       # layer4
+    ((3, 9, 32, 24, 3, 2, 1, None), 0.0, False, "fma"),        # ragged edges
+    ((1, 5, 16, 8, 1, 1, 0, None), -127.0, True, "mul_add"),   # tiny
+])
+def test_conv_s8_matches_plain_bitwise(cuda, shape, lo, rne, res_mode):
+    """Integer products and the written-out float32 epilogue leave no room:
+    the kernel equals its plain version bit for bit."""
+    args, kw = conv_args(*shape, res_mode, device=cuda)
+    before = port_conv.conv_s8.launches
+    got = port_conv.conv_s8(*args, lo=lo, rne=rne, **kw)
+    torch.cuda.synchronize()
+    assert port_conv.conv_s8.launches == before + 1
+    ref = port_conv.conv_s8_reference(*args, lo=lo, rne=rne, **kw)
+    assert got.dtype == torch.int8 and got.shape == ref.shape
+    assert torch.equal(got, ref)
+
+
+def test_conv_s8_refuses_widths_it_does_not_take(cuda):
+    args, kw = conv_args(1, 6, 8, 16, 1, 1, 0, None, None, device=cuda)
+    before = port_conv.conv_s8.launches
+    with pytest.raises(ValueError, match="CUDA kernel takes"):
+        port_conv.conv_s8(*args, **kw)
+    assert port_conv.conv_s8.launches == before
+
+
+def test_conv_s8_output_past_2_gib(cuda):
+    """The stem at 2,720 crops (272 images x 10): its int8 output, 2.18 GB,
+    passes 2^31 bytes. The first and last images equal the plain version's
+    on those images alone."""
+    n, h, cin, cout = 2720, 116, 16, 64
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randint(-128, 128, (n, h, h, cin), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    (_, w, mult, bias), kw = conv_args(1, h, cin, cout, 4, 1, 0, (112, 112),
+                                       None, device=cuda)
+    got = port_conv.conv_s8(x, w, mult, bias, **kw)
+    torch.cuda.synchronize()
+    assert got.numel() > 2 ** 31
+    for part in (slice(0, 2), slice(n - 2, n)):
+        ref = port_conv.conv_s8_reference(x[part].contiguous(), w, mult,
+                                          bias, **kw)
+        assert torch.equal(got[part], ref)
+
+
+def test_int8_network_on_the_kernel_matches_plain(cuda):
+    """The int8 resnet14 on the card: one conv_s8 launch per convolution
+    (stem + 4 blocks x 3 + 4 downsamples), and logits equal to the same
+    network run through the plain version on the card."""
+    from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline_s8
+    from geoestimation_tpu_torch.models import quant
+    from geoestimation_tpu_torch.tools import world
+
+    _, sd, _ = world.build_world(arch="resnet14", counts=(40, 120, 360))
+    qnet = quant.quantize_model(sd, "resnet14")
+    images = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 256, (2, 256, 256, 3), dtype=np.uint8)).to(cuda)
+    scales = quant.calibrate(sd, [images.cpu().numpy()], "resnet14",
+                             device=cuda)
+    x = eval_pipeline_s8(images)
+    before = port_conv.conv_s8.launches
+    got = quant.build_int8_apply(qnet, scales, device=cuda)(x)
+    torch.cuda.synchronize()
+    assert port_conv.conv_s8.launches == before + 17
+    ref = quant.build_int8_apply(qnet, scales, device=cuda, plain=True)(x)
+    assert port_conv.conv_s8.launches == before + 17
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)

@@ -335,8 +335,9 @@ def test_inference_cli_fast_kernel_path_on_cpu(world, tmp_path, tta):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--precision", "8"], ["--feature_tta"], ["--recalibrate"],
-    ["--calib_dir", "x"], ["--coordinator", "localhost:1234"],
+    ["--precision", "8", "--feature_tta"], ["--feature_tta"],
+    ["--feature_tta_level", "2"], ["--num_processes", "2"],
+    ["--coordinator", "localhost:1234"],
 ])
 def test_cli_refuses_flags_not_ported(world, flags):
     from geoestimation_tpu_torch.classification.inference import main

@@ -303,11 +303,10 @@ def test_module_runs_on_cuda_unless_asked_for_cpu(servers):
 
 
 @pytest.mark.parametrize("flags, item", [
-    (["--precision", "8"], "int8 serving path"),
+    (["--precision", "8", "--feature_tta"], "TTA variants"),
     (["--feature_tta"], "TTA variants"),
     (["--feature_tta_level", "2"], "TTA variants"),
-    (["--calib_dir", "x"], "int8 serving path"),
-    (["--recalibrate"], "int8 serving path"),
+    (["--precision", "8", "--calib_dir", "x", "--shard_batch"], "Training"),
     (["--shard_batch"], "Training"),
 ])
 def test_main_refuses_flags_not_ported(tmp_path, flags, item):
