@@ -63,16 +63,22 @@ from geoestimation_tpu_torch.eval.infer import mean_tta_logits, predict_all
 from geoestimation_tpu_torch.ingest import decode
 from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline_s8, shift_s8
 from geoestimation_tpu_torch.models import quant
-from geoestimation_tpu_torch.models.resnet import STAGE_SIZES
 from geoestimation_tpu_torch.ops import _build
 from geoestimation_tpu_torch.ops import conv_s8 as ops8
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
 from geoestimation_tpu_torch.serve import GeoInferenceServer
 from geoestimation_tpu_torch.tools import world
 from geoestimation_tpu_torch.tools.bench_kernels import (
+    INT8_EDGES,
+    INT8_LAUNCHES,
     block_cost,
     block_inputs,
+    conv_s8_cost,
+    conv_s8_inputs,
+    conv_s8_library,
+    conv_s8_plan,
     cudnn_chain,
+    int8_conv_shapes,
 )
 from geoestimation_tpu_torch.tools.card import (
     H100_INT8_OPS,
@@ -143,6 +149,8 @@ def phase_device():
     reports = _build.build()
     log(f"kernel build: {time.perf_counter() - t0:.1f} s for "
         f"{_build.sources()}")
+    summaries = {name: ptxas_summary(report)
+                 for name, report in reports.items()}
     for name, report in reports.items():
         # C7519: ptxas put a warpgroup.arrive (a wait for the wgmma in
         # flight) where registers a wgmma uses are touched between products
@@ -155,7 +163,33 @@ def phase_device():
         log(f"  ptxas {name}: {len(arrives)} x C7519 (warpgroup.arrive "
             f"injected to allow use of registers in GMMA)"
             + (f"; first: {arrives[0].strip()}" if arrives else ""))
-    return label
+    return label, summaries
+
+
+def ptxas_summary(report):
+    """{registers, spill_stores, spill_loads, c7519} per entry function of a
+    `-Xptxas -v` report, the function named as ptxas names it."""
+    out, fn = {}, None
+
+    def entry(name):
+        return out.setdefault(name, {"registers": None, "spill_stores": None,
+                                     "spill_loads": None, "c7519": 0})
+
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            entry(fn)
+        elif "C7519" in line and "in function '" in line:
+            entry(line.split("in function '")[1].split("'")[0])["c7519"] += 1
+        elif fn and "spill stores" in line:
+            words = line.split()
+            out[fn]["spill_stores"] = int(words[words.index("spill") - 2])
+            out[fn]["spill_loads"] = int(line.split("spill stores,")[1]
+                                         .split()[0])
+        elif fn and "Used" in line and "registers" in line:
+            words = line.split()
+            out[fn]["registers"] = int(words[words.index("Used") + 1])
+    return out
 
 
 # -- phase 2 -------------------------------------------------------------------
@@ -218,93 +252,18 @@ def check_kernel(name, label, gen):
     }
 
 
-def int8_conv_shapes(n=80, arch="resnet50", crop=224):
-    """[(label, (N, H, Cin, Cout, K, stride, pad, out_hw, lo, res_mode),
-    launches per forward)] of every distinct convolution of the int8
-    ResNet50 at `crop`-px crops, N crops: the stem over its space-to-depth
-    buffer, and each block's 1x1, 3x3 and conv3 (the stage entries' conv3
-    requantized alone, their downsample conv with the entry residual; the
-    identity blocks' conv3 with the identity residual)."""
-    shapes = {}
-
-    def add(label, key):
-        shapes.setdefault(key, [label, 0])[1] += 1
-
-    add("stem 4x4 space-to-depth", (n, (crop + 8) // 2, 16, 64, 4, 1, 0,
-                                     (crop // 2, crop // 2), 0.0, None))
-    h, cin = crop // 4, 64
-    for stage, n_blocks in enumerate(STAGE_SIZES[arch]):
-        mid, layer = 64 * 2 ** stage, f"layer{stage + 1}"
-        for b in range(n_blocks):
-            s = 2 if stage > 0 and b == 0 else 1
-            ho = (h - 1) // s + 1
-            add(f"{layer} conv1 1x1 {cin}-{mid} @{h}",
-                (n, h, cin, mid, 1, 1, 0, None, 0.0, None))
-            add(f"{layer} conv2 3x3/{s} {mid} @{h}",
-                (n, h, mid, mid, 3, s, 1, None, 0.0, None))
-            if b == 0:
-                add(f"{layer} conv3 1x1 {mid}-{4 * mid} signed @{ho}",
-                    (n, ho, mid, 4 * mid, 1, 1, 0, None, -127.0, None))
-                add(f"{layer} downsample 1x1/{s} {cin}-{4 * mid} + entry "
-                    f"residual @{h}", (n, h, cin, 4 * mid, 1, s, 0, None, 0.0,
-                                      "mul_add"))
-            else:
-                add(f"{layer} conv3 1x1 {mid}-{4 * mid} + identity residual "
-                    f"@{ho}", (n, ho, mid, 4 * mid, 1, 1, 0, None, 0.0,
-                               "fma"))
-            h, cin = ho, 4 * mid
-    return [(label, key, count) for key, (label, count) in shapes.items()]
-
-
-INT8_LAUNCHES = 53      # one per convolution of the int8 ResNet50
-STEM_S2D_CIN = 12       # the stem's space-to-depth channels, before padding
-# the kernel's edges, not on the main path: M and Cout short of a tile, rne
-INT8_EDGES = [("ragged 9x9/2 32-24 rne + identity residual",
-               (3, 9, 32, 24, 3, 2, 1, None, 0.0, "fma"), 0),
-              ("tiny 5x5 16-8 signed + entry residual",
-               (1, 5, 16, 8, 1, 1, 0, None, -127.0, "mul_add"), 0)]
-
-
-def _im2col(x, k, stride, pad, out_hw):
-    """(N*Ho*Wo, K*K*Cin) int8 columns of an NHWC int8 tensor, (ky, kx, c)
-    order: the input of the library yardstick's int8 GEMM."""
-    n, h, w, c = x.shape
-    ho, wo = out_hw
-    xp = torch.zeros((n, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype,
-                     device=x.device)
-    xp[:, pad:pad + h, pad:pad + w] = x
-    taps = [xp[:, ky:ky + stride * (ho - 1) + 1:stride,
-               kx:kx + stride * (wo - 1) + 1:stride]
-            for ky in range(k) for kx in range(k)]
-    return torch.stack(taps, dim=3).reshape(n * ho * wo, k * k * c)
-
-
-def check_conv_s8(label, gen):
+def check_conv_s8(label, gen, ptxas):
     """The int8 convolution against its plain version, bit for bit, at every
-    shape of the int8 ResNet50 (N = 80) and the tiling's edges; returns its
-    JSON entry (launches filled in from the int8 main path's run)."""
+    shape of the int8 ResNet50 (N = 80) and the tiling's edges, with the
+    plan each shape ran and the build's ptxas summary (None where the
+    library was built before this run); returns its JSON entry (launches
+    filled in from the int8 main path's run)."""
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0,
               "bytes": 0}
     shapes = int8_conv_shapes()
     assert sum(c for *_, c in shapes) == INT8_LAUNCHES, shapes
-
-    def i8(shape, lo, hi):
-        return torch.randint(lo, hi, shape, generator=gen, device="cuda",
-                             dtype=torch.int32).to(torch.int8)
-
     for label_, key, per_fwd in shapes + INT8_EDGES:
-        n, h, cin, cout, k, s, p, out_hw, lo, res_mode = key
-        ho, wo = out_hw or ops8.out_size(h, h, (k, k), s, p)
-        # the stem sees (pixel - 128); every other input is post-relu
-        x = i8((n, h, h, cin), -128 if k == 4 else 0, 128)
-        w = i8((cout, k * k * cin), -127, 128)
-        mult = torch.rand(cout, generator=gen, device="cuda") * 2e-3 + 1e-5
-        bias = torch.randn(cout, generator=gen, device="cuda") * 20
-        res = i8((n, ho, wo, cout), -127 if res_mode == "mul_add" else 0,
-                 128) if res_mode else None
-        kw = dict(ksize=(k, k), stride=s, pad=p, out_hw=out_hw, lo=lo,
-                  res=res, res_scale=0.37, res_mode=res_mode or "fma")
-        args = (x, w, mult, bias)
+        args, kw = conv_s8_inputs(key, gen)
         got = ops8.conv_s8(*args, **kw)
         torch.cuda.synchronize()
         ref = ops8.conv_s8_reference(*args, **kw)
@@ -317,30 +276,22 @@ def check_conv_s8(label, gen):
         ms = time_ms(lambda: ops8.conv_s8(*args, **kw))
         plain_ms = time_ms(lambda: ops8.conv_s8_reference(*args, **kw),
                            reps=5, warmup=1)
-        lib_ms = None
-        if per_fwd:
-            wt = w.t()
-            lib_ms = time_ms(lambda: torch._int_mm(
-                _im2col(x, k, s, p, (ho, wo)), wt))
-        # the function's channels: the stem's space-to-depth input has 12
-        # (2 x 2 pixels x RGB); the 4 more it is launched with are zeros the
-        # kernel needs (Cin % 16 == 0), not work the function asks for
-        cin_fn = STEM_S2D_CIN if k == 4 else cin
-        nops = 2 * n * ho * wo * cout * k * k * cin_fn
-        nbytes = (n * h * h * cin_fn + cout * k * k * cin_fn + 8 * cout
-                  + got.numel() * (2 if res is not None else 1))
+        lib_name, lib = conv_s8_library(args, kw)
+        lib_ms = time_ms(lib) if per_fwd else None
+        nops, nbytes = conv_s8_cost(key)
         bound, bound_by = bound_ms(nops, nbytes, H100_INT8_OPS)
+        plan = conv_s8_plan(args[0], args[1], kw)
         log("kernel-check " + json.dumps({
-            "kernel": "conv_s8", "shape": label_, "N": n, "max_abs_err": err,
-            "bitwise_equal": 1.0, "kernel_ms": ms, "bound_ms": bound,
-            "bound_by": bound_by, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "library": "im2col + torch._int_mm", "launches_per_forward":
-            per_fwd, "card": label}))
+            "kernel": "conv_s8", "shape": label_, "N": key[0], "plan": plan,
+            "ptxas": ptxas, "max_abs_err": err, "bitwise_equal": 1.0,
+            "kernel_ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "plain_ms": plain_ms, "library_ms": lib_ms, "library": lib_name,
+            "launches_per_forward": per_fwd, "card": label}))
         for key_, val in (("ms", ms), ("plain_ms", plain_ms),
                           ("library_ms", lib_ms or 0.0), ("ops", nops),
                           ("bytes", nbytes)):
             totals[key_] += per_fwd * val
-        del args, x, w, res, got, ref
+        del args, kw, got, ref
     bound, bound_by = bound_ms(totals["ops"], totals["bytes"], H100_INT8_OPS)
     return {
         "name": "conv_s8",
@@ -357,13 +308,13 @@ def check_conv_s8(label, gen):
     }
 
 
-def phase_kernels(label):
+def phase_kernels(label, ptxas):
     """Each kernel against its plain version; returns the JSON entries.
     Times are per forward of 8 images x 10 crops, summed over the kernel's
     launches on its main path."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     return [check_kernel(name, label, gen) for name in SHAPES] + [
-        check_conv_s8(label, gen)]
+        check_conv_s8(label, gen, ptxas.get("conv_s8"))]
 
 
 # -- phase 3 -------------------------------------------------------------------
@@ -786,8 +737,8 @@ def phase_int8(label, engine, fast_ips, host_crops):
 
 def main():
     t0 = time.perf_counter()
-    label = phase_device()
-    kernels = phase_kernels(label)
+    label, ptxas = phase_device()
+    kernels = phase_kernels(label, ptxas)
     config, sd, parts = world.build_world()
 
     def engine(device="cuda", dtype=torch.bfloat16, **kw):

@@ -1,4 +1,4 @@
-"""A/B timing of the fused-bottleneck CUDA kernels on the card.
+"""A/B timing of the port's CUDA kernels on the card.
 
     python -m geoestimation_tpu_torch.tools.bench_kernels [case ...]
 
@@ -19,6 +19,17 @@ limit. Cases:
   layer1npi{2,4,8}, layer2npi{2,4,8}: the JAX images-per-tile sweep. The
                CUDA kernels have no images-per-tile, so these repeat layer1
                and layer2carry; their spread is the timing's noise.
+  conv_s8      the int8 convolution at every distinct convolution of the
+               int8 ResNet50 (`int8_conv_shapes`, 28 shapes) at 640 crops;
+               conv_s8_n80 the same at 80 crops (`chip_smoke.py`'s size).
+               Each shape is checked bit for bit against the plain version
+               and timed beside its bound and one int8 GEMM on the same
+               inputs: `torch._int_mm` of the pixels by the weights for a
+               1x1 stride-1 convolution, im2col first for the others; a
+               last line sums each column over the 53 launches of a forward.
+               `kernel_ms` times one launch from an idle card (the host's
+               work to launch it included); `queued_ms` is the mean of 10
+               launches issued back to back, as a forward issues them.
   e2e          the whole ten-crop forward at batch 64 (ingest, ResNet50,
                heads, f*) on the seeded full-width world (`tools/world.py`),
                for the unfolded module path and the fast-path variants
@@ -27,7 +38,8 @@ limit. Cases:
                mirror TTA (ROADMAP.md Queue 1, 'TTA variants').
 
 With no case named it runs every case but e2e. Each case's line gives the
-plan its kernel chose (`ops.fused_bottleneck.kernel_plan`). It runs on a
+plan its kernel chose (`ops.fused_bottleneck.kernel_plan`,
+`ops.conv_s8.kernel_plan`). It runs on a
 CUDA card only and raises without one.
 """
 
@@ -42,13 +54,15 @@ import torch.nn.functional as F
 
 from ..eval.engine import InferenceEngine
 from ..models.fast_infer import build_fast_apply
+from ..models.resnet import STAGE_SIZES
+from ..ops import conv_s8 as ops8
 from ..ops.fused_bottleneck import (
     fused_bottleneck,
     fused_bottleneck_s2,
     kernel_plan,
 )
 from . import world
-from .card import bound_ms, card_label, require_cuda, time_ms
+from .card import H100_INT8_OPS, bound_ms, card_label, require_cuda, time_ms
 
 # name: (stride, N, H, W, Cin, Cmid, Cout, projection)
 CASES = {
@@ -167,6 +181,186 @@ FAST_VARIANTS = {
 }
 
 
+def int8_conv_shapes(n=80, arch="resnet50", crop=224):
+    """[(label, (N, H, Cin, Cout, K, stride, pad, out_hw, lo, res_mode),
+    launches per forward)] of every distinct convolution of the int8
+    ResNet50 at `crop`-px crops, N crops: the stem over its space-to-depth
+    buffer, and each block's 1x1, 3x3 and conv3 (the stage entries' conv3
+    requantized alone, their downsample conv with the entry residual; the
+    identity blocks' conv3 with the identity residual)."""
+    shapes = {}
+
+    def add(label, key):
+        shapes.setdefault(key, [label, 0])[1] += 1
+
+    add("stem 4x4 space-to-depth", (n, (crop + 8) // 2, 16, 64, 4, 1, 0,
+                                     (crop // 2, crop // 2), 0.0, None))
+    h, cin = crop // 4, 64
+    for stage, n_blocks in enumerate(STAGE_SIZES[arch]):
+        mid, layer = 64 * 2 ** stage, f"layer{stage + 1}"
+        for b in range(n_blocks):
+            s = 2 if stage > 0 and b == 0 else 1
+            ho = (h - 1) // s + 1
+            add(f"{layer} conv1 1x1 {cin}-{mid} @{h}",
+                (n, h, cin, mid, 1, 1, 0, None, 0.0, None))
+            add(f"{layer} conv2 3x3/{s} {mid} @{h}",
+                (n, h, mid, mid, 3, s, 1, None, 0.0, None))
+            if b == 0:
+                add(f"{layer} conv3 1x1 {mid}-{4 * mid} signed @{ho}",
+                    (n, ho, mid, 4 * mid, 1, 1, 0, None, -127.0, None))
+                add(f"{layer} downsample 1x1/{s} {cin}-{4 * mid} + entry "
+                    f"residual @{h}", (n, h, cin, 4 * mid, 1, s, 0, None, 0.0,
+                                      "mul_add"))
+            else:
+                add(f"{layer} conv3 1x1 {mid}-{4 * mid} + identity residual "
+                    f"@{ho}", (n, ho, mid, 4 * mid, 1, 1, 0, None, 0.0,
+                               "fma"))
+            h, cin = ho, 4 * mid
+    return [(label, key, count) for key, (label, count) in shapes.items()]
+
+
+INT8_LAUNCHES = 53      # one per convolution of the int8 ResNet50
+STEM_S2D_CIN = 12       # the stem's space-to-depth channels, before padding
+# the kernel's edges, not on the main path: M and Cout short of a tile, rne
+INT8_EDGES = [("ragged 9x9/2 32-24 rne + identity residual",
+               (3, 9, 32, 24, 3, 2, 1, None, 0.0, "fma"), 0),
+              ("tiny 5x5 16-8 signed + entry residual",
+               (1, 5, 16, 8, 1, 1, 0, None, -127.0, "mul_add"), 0)]
+
+
+def conv_s8_inputs(key, gen):
+    """Seeded inputs of one `int8_conv_shapes` entry on the generator's
+    device: ((x, w, mult, bias), keywords of `conv_s8`)."""
+    n, h, cin, cout, k, s, p, out_hw, lo, res_mode = key
+    ho, wo = out_hw or ops8.out_size(h, h, (k, k), s, p)
+
+    def i8(shape, lo_, hi):
+        return torch.randint(lo_, hi, shape, generator=gen, device=gen.device,
+                             dtype=torch.int32).to(torch.int8)
+
+    # the stem sees (pixel - 128); every other input is post-relu
+    x = i8((n, h, h, cin), -128 if k == 4 else 0, 128)
+    w = i8((cout, k * k * cin), -127, 128)
+    mult = torch.rand(cout, generator=gen, device=gen.device) * 2e-3 + 1e-5
+    bias = torch.randn(cout, generator=gen, device=gen.device) * 20
+    res = i8((n, ho, wo, cout), -127 if res_mode == "mul_add" else 0,
+             128) if res_mode else None
+    return (x, w, mult, bias), dict(
+        ksize=(k, k), stride=s, pad=p, out_hw=out_hw, lo=lo, res=res,
+        res_scale=0.37, res_mode=res_mode or "fma")
+
+
+def _taps_reach(size, out, k, stride, pad):
+    """How many of an input's `size` rows (or columns) the taps of `out`
+    output rows read: all of them where k >= stride, one in `stride` for
+    a strided 1x1 convolution."""
+    return len({o * stride + t - pad for o in range(out) for t in range(k)}
+               & set(range(size)))
+
+
+def conv_s8_cost(key):
+    """(operations, bytes) of one convolution: 2 per multiply-add; each
+    input byte that a tap reads, each residual and weight byte read once,
+    each output byte written once, mult and bias 8 bytes a channel. The
+    stem counts the function's 12 space-to-depth channels, not the 16 it is
+    launched with (4 of them zeros the kernel needs for Cin % 16 == 0)."""
+    n, h, cin, cout, k, s, p, out_hw, _, res_mode = key
+    ho, wo = out_hw or ops8.out_size(h, h, (k, k), s, p)
+    cin = STEM_S2D_CIN if k == 4 else cin
+    out = n * ho * wo * cout
+    x_bytes = (n * _taps_reach(h, ho, k, s, p) * _taps_reach(h, wo, k, s, p)
+               * cin)
+    return (2 * out * k * k * cin,
+            x_bytes + cout * k * k * cin + 8 * cout
+            + out * (2 if res_mode else 1))
+
+
+def _im2col(x, k, stride, pad, out_hw):
+    """(N*Ho*Wo, K*K*Cin) int8 columns of an NHWC int8 tensor, (ky, kx, c)
+    order: the input of the library yardstick's int8 GEMM."""
+    n, h, w, c = x.shape
+    ho, wo = out_hw
+    xp = torch.zeros((n, h + 2 * pad, w + 2 * pad, c), dtype=x.dtype,
+                     device=x.device)
+    xp[:, pad:pad + h, pad:pad + w] = x
+    taps = [xp[:, ky:ky + stride * (ho - 1) + 1:stride,
+               kx:kx + stride * (wo - 1) + 1:stride]
+            for ky in range(k) for kx in range(k)]
+    return torch.stack(taps, dim=3).reshape(n * ho * wo, k * k * c)
+
+
+def conv_s8_library(args, kw):
+    """(name, zero-argument callable): one int8 GEMM on the same inputs, the
+    yardstick, used nowhere in the port. A 1x1 stride-1 convolution is the
+    matrix product of its pixels (N*H*W, Cin) by the weights, with no copy;
+    a strided or larger one needs its im2col columns first."""
+    x, w = args[0], args[1]
+    k, s, p = kw["ksize"][0], kw["stride"], kw["pad"]
+    wt = w.t()
+    if k == 1 and s == 1 and p == 0 and kw["out_hw"] is None:
+        a = x.view(-1, x.shape[-1])
+        return "torch._int_mm", lambda: torch._int_mm(a, wt)
+    out_hw = kw["out_hw"] or ops8.out_size(x.shape[1], x.shape[2], (k, k), s,
+                                           p)
+    return "im2col + torch._int_mm", lambda: torch._int_mm(
+        _im2col(x, k, s, p, out_hw), wt)
+
+
+def conv_s8_plan(x, w, kw):
+    """The kernel's plan for these inputs (`ops.conv_s8.kernel_plan`)."""
+    n, h, wd, cin = x.shape
+    k, s, p = kw["ksize"][0], kw["stride"], kw["pad"]
+    ho, wo = kw["out_hw"] or ops8.out_size(h, wd, (k, k), s, p)
+    return ops8.kernel_plan(n, h, wd, cin, ho, wo, w.shape[0], k, k, s, p,
+                            kw["res"] is not None)
+
+
+def bench_conv_s8(label, n, seed=0):
+    """Every `int8_conv_shapes` entry at N crops: bit-equal to the plain
+    version, then kernel, bound and library times; one line per shape and
+    one summed over a forward's launches."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    totals = {"kernel_ms": 0.0, "queued_ms": 0.0, "library_ms": 0.0, "ops": 0,
+              "bytes": 0}
+    for shape, key, per_fwd in int8_conv_shapes(n):
+        args, kw = conv_s8_inputs(key, gen)
+        got = ops8.conv_s8(*args, **kw)
+        equal = bool(torch.equal(got, ops8.conv_s8_reference(*args, **kw)))
+        del got
+        ms = time_ms(lambda: ops8.conv_s8(*args, **kw))
+        queued = time_ms(lambda: [ops8.conv_s8(*args, **kw)
+                                  for _ in range(QUEUED)]) / QUEUED
+        lib_name, lib = conv_s8_library(args, kw)
+        lib_ms = time_ms(lib)
+        nops, nbytes = conv_s8_cost(key)
+        bound, bound_by = bound_ms(nops, nbytes, H100_INT8_OPS)
+        print("bench_kernels " + json.dumps({
+            "case": "conv_s8", "shape": shape, "N": n,
+            "plan": conv_s8_plan(args[0], args[1], kw), "kernel_ms": ms,
+            "queued_ms": queued,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+            "library": lib_name, "launches_per_forward": per_fwd,
+            "bit_equal": equal, "card": label}), flush=True)
+        if not equal:
+            raise RuntimeError(f"conv_s8 differs from its plain version at "
+                               f"{shape}, N = {n}")
+        for key_, val in (("kernel_ms", ms), ("queued_ms", queued),
+                          ("library_ms", lib_ms),
+                          ("ops", nops), ("bytes", nbytes)):
+            totals[key_] += per_fwd * val
+        del args, kw
+    bound, bound_by = bound_ms(totals.pop("ops"), totals.pop("bytes"),
+                               H100_INT8_OPS)
+    print("bench_kernels " + json.dumps({
+        "case": "conv_s8 forward", "N": n, "launches": INT8_LAUNCHES,
+        **totals, "bound_ms": bound, "bound_by": bound_by,
+        "card": label}), flush=True)
+
+
+CONV_S8_CASES = {"conv_s8": 640, "conv_s8_n80": 80}
+QUEUED = 10     # launches back to back for `queued_ms`: the host's share hidden
+
+
 def bench_e2e(label, batch=64, reps=10):
     config, sd, parts = world.build_world()
     module = InferenceEngine(config, sd, partitionings=parts, n_crops=10,
@@ -195,11 +389,11 @@ def bench_e2e(label, batch=64, reps=10):
 
 def main(argv=None):
     names = list(sys.argv[1:] if argv is None else argv) or [
-        n for n in CASES]
-    unknown = [n for n in names if n != "e2e" and n not in CASES]
+        *CASES, *CONV_S8_CASES]
+    have = list(CASES) + list(CONV_S8_CASES) + ["e2e"]
+    unknown = [n for n in names if n not in have]
     if unknown:
-        raise SystemExit(f"unknown case(s) {unknown}; have "
-                         f"{list(CASES) + ['e2e']}")
+        raise SystemExit(f"unknown case(s) {unknown}; have {have}")
     require_cuda("bench_kernels")
     label = card_label()
     print(f"card: {label}; torch {torch.__version__} cuda "
@@ -207,6 +401,8 @@ def main(argv=None):
     for name in names:
         if name == "e2e":
             bench_e2e(label)
+        elif name in CONV_S8_CASES:
+            bench_conv_s8(label, CONV_S8_CASES[name])
         else:
             bench_case(name, label)
 

@@ -14,8 +14,10 @@ are the stages' own times.
 Variants (build_fast_apply keywords as `bench_kernels`' e2e): noPallas, L1,
 L2, L1L2, L1L2-s2, and int8: the int8 path (`models/quant.py`, every conv
 on `conv_s8`), its ingest `eval_pipeline_s8`, its scales an absmax
-calibration on the first 8 images (default: all). It runs on a CUDA card
-only and raises without one.
+calibration on the first 8 images, and int8-stem: the int8 stem's time
+split into its space-to-depth buffer, its `conv_s8` launch and its 9-tap
+max pool (default: all). It runs on a CUDA card only and raises without
+one.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from .card import card_label, require_cuda, time_ms
 VARIANTS = {name.removeprefix("fast-"): kw
             for name, kw in FAST_VARIANTS.items()}
 VARIANTS["int8"] = None
+VARIANTS["int8-stem"] = None
 PREFIXES = ("ingest", "stem", "layer1", "layer2", "layer3", "layer4", "head")
 
 
@@ -72,7 +75,52 @@ def int8_apply(sd, images):
                                   device="cuda")
 
 
+def bench_stem_split(sd, images, label, reps=10):
+    """The int8 stem on the ingested batch, whole and in its three parts:
+    the `conv_s8` launch and the max pool timed alone on the inputs the
+    stem gave them, and the space-to-depth buffer timed as the stem with
+    the convolution answering from a cache and the pool passing through."""
+    real_conv, real_pool = quant.conv_s8, quant.max_pool_3x3_s2
+    route = {"conv": real_conv}
+    seen = {}
+
+    def record(*args, **kw):
+        seen["call"], seen["y"] = (args, kw), real_conv(*args, **kw)
+        return seen["y"]
+
+    quant.conv_s8 = lambda *args, **kw: route["conv"](*args, **kw)
+    try:
+        apply = int8_apply(sd, images)       # binds the dispatcher
+    finally:
+        quant.conv_s8 = real_conv
+    with torch.inference_mode():
+        x = s8_ingest(images, 10)
+        route["conv"] = record
+        apply.stem_fn(x)
+        route["conv"] = real_conv
+        args, kw = seen["call"]
+        y = seen["y"]
+        stem_ms = time_ms(lambda: apply.stem_fn(x), reps=reps)
+        conv_ms = time_ms(lambda: real_conv(*args, **kw), reps=reps)
+        pool_ms = time_ms(lambda: real_pool(y), reps=reps)
+        route["conv"] = lambda *a, **k: y
+        quant.max_pool_3x3_s2 = lambda t: t
+        try:
+            buffer_ms = time_ms(lambda: apply.stem_fn(x), reps=reps)
+        finally:
+            route["conv"], quant.max_pool_3x3_s2 = real_conv, real_pool
+    print("bench_stages " + json.dumps({
+        "variant": "int8-stem", "stem_ms": stem_ms,
+        "s2d_buffer_ms": buffer_ms, "conv_s8_ms": conv_ms,
+        "max_pool_ms": pool_ms,
+        "rest_ms": stem_ms - buffer_ms - conv_ms - pool_ms,
+        "buffer_shape": list(args[0].shape), "conv_out_shape": list(y.shape),
+        "batch": len(images), "card": label}), flush=True)
+
+
 def bench_variant(name, sd, images, label, reps=10):
+    if name == "int8-stem":
+        return bench_stem_split(sd, images, label, reps)
     if name == "int8":
         apply, ingest = int8_apply(sd, images), s8_ingest
     else:

@@ -75,9 +75,9 @@ def test_flags_are_in_the_key(csrc, monkeypatch):
 
 def test_the_kernels_share_one_core_and_call_no_library():
     """Both fused-bottleneck sources include the shared sm_90a core and keep
-    no copy of its helpers; the int8 convolution stands alone, on s8
-    mma.sync with its epilogue's fmas written out; none reaches a library
-    kernel."""
+    no copy of its helpers; the int8 convolution keeps its own: s8 wgmma on
+    shared-memory tiles that TMA brings in, completed on mbarriers, with its
+    epilogue's fmas written out; none reaches a library kernel."""
     fused = ["fused_bottleneck", "fused_bottleneck_s2"]
     assert build.sources() == ["conv_s8"] + fused
     core = (build.CSRC_DIR / "bottleneck_sm90.cuh").read_text()
@@ -89,7 +89,11 @@ def test_the_kernels_share_one_core_and_call_no_library():
         for copied in ("wgmma.mma_async", "mbarrier.init", "mma.sync"):
             assert copied not in text, (name, copied)
     conv = (build.CSRC_DIR / "conv_s8.cu").read_text()
-    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32" in conv
+    for wgmma in ("m64n64k32.s32.s8.s8", "m64n128k32.s32.s8.s8"):
+        assert f"wgmma.mma_async.sync.aligned.{wgmma}" in conv
+    assert "cp.async.bulk.tensor" in conv and "mbarrier.try_wait" in conv
+    assert "CU_TENSOR_MAP_DATA_TYPE_UINT8" in conv
+    assert "mma.sync" not in conv and "bottleneck_sm90.cuh" not in conv
     assert "__fmaf_rn" in conv and "__fmul_rn" in conv and "__fadd_rn" in conv
     for name in build.sources():
         text = (build.CSRC_DIR / f"{name}.cu").read_text()

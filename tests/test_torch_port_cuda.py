@@ -283,6 +283,44 @@ def test_conv_s8_matches_plain_bitwise(cuda, shape, lo, rne, res_mode):
     assert torch.equal(got, ref)
 
 
+@pytest.mark.parametrize("shape, lo, rne, res_mode, mode, maps", [
+    # many waves of a persistent grid: 1,960 tiles over 264 blocks, the
+    # weights resident, the identity residual by TMA
+    ((40, 56, 64, 256, 1, 1, 0, None), 0.0, False, "fma", "flat", 1),
+    # a partial last sub-box in M (507 pixels) and chunk in Cout (72 of 128)
+    ((3, 13, 48, 72, 1, 1, 0, None), 0.0, True, None, "flat", 1),
+    # 9 chunks of 64 channels, the last partial; weights streamed
+    ((2, 9, 64, 520, 3, 1, 1, None), 0.0, False, None, "box", 1),
+    # stride 2 phases, partial sub-boxes, the entry residual by TMA
+    ((2, 23, 64, 128, 3, 2, 1, None), 0.0, False, "mul_add", "box", 4),
+    # 128-byte sub-slices, stride 2, Cout 72 stored by 8-byte stores
+    ((2, 13, 128, 72, 3, 2, 1, None), 0.0, True, "fma", "box", 4),
+    # 5x5 stride 3: 9 phase maps in global memory; Cout 40 takes the
+    # residual by 8-byte loads
+    ((2, 11, 32, 40, 5, 3, 2, None), 0.0, False, "fma", "box", 9),
+    # 7x7 stride 16: 49 phase maps
+    ((2, 16, 16, 32, 7, 16, 3, None), -127.0, False, "mul_add", "box", 49),
+    # a plane narrower than the stride: phases with no input pixel
+    ((2, 2, 16, 16, 3, 4, 1, None), 0.0, False, None, "box", 9),
+    # folded taps: 2 of 32 channels, and the stem's 4 of 16 sliced
+    ((2, 30, 32, 64, 2, 1, 0, None), 0.0, False, None, "fold", 2),
+    ((2, 20, 16, 24, 4, 1, 0, (15, 13)), 0.0, True, None, "fold", 4),
+])
+def test_conv_s8_plans_match_plain_bitwise(cuda, shape, lo, rne, res_mode,
+                                           mode, maps):
+    """Each of the planner's modes and edges, bit for bit."""
+    args, kw = conv_args(*shape, res_mode, device=cuda)
+    n, h, cin, cout, k, stride, pad, out_hw = shape
+    ho, wo = out_hw or port_conv.out_size(h, h, (k, k), stride, pad)
+    plan = port_conv.kernel_plan(n, h, h, cin, ho, wo, cout, k, k, stride,
+                                 pad, res_mode is not None)
+    assert (plan["mode"], plan["maps"]) == (mode, maps)
+    got = port_conv.conv_s8(*args, lo=lo, rne=rne, **kw)
+    torch.cuda.synchronize()
+    ref = port_conv.conv_s8_reference(*args, lo=lo, rne=rne, **kw)
+    assert torch.equal(got, ref)
+
+
 def test_conv_s8_refuses_widths_it_does_not_take(cuda):
     args, kw = conv_args(1, 6, 8, 16, 1, 1, 0, None, None, device=cuda)
     before = port_conv.conv_s8.launches
