@@ -38,8 +38,32 @@ Phases, in order; any failure exits non-zero and prints no result line:
      phase 4's host ten-crops (`tta_mode="host_exact"`, 5-D batches). The
      int8 convolution's check against its plain version (bit for bit, at
      every convolution shape of the int8 ResNet50) runs in phase 2;
-  7. one JSON line describing every kernel, then the result line
-     {"ok": true, "device": {...}}.
+  7. the TTA variants: each kernel against its plain version at the new
+     shapes of feature TTA's trunk (8 base images of 256 px and their
+     mirrors: the stride-1 kernel on 64- and 32-wide planes, the stride-2
+     one at the 64-wide layer2 entry that use_pallas_s2 would give it,
+     conv_s8 bit for bit at the stem over a 132-wide buffer and layer1-3 at
+     64/32/16, each line with its plan); `InferenceEngine(tta_mode=
+     "feature")` at level 3 (8 images), then 1 and 2 (4 images), in bf16 on
+     the kernels (6 launches a forward; logits within the fast-path gates
+     of the same level on the cuDNN route; `predict_batch`'s classes those
+     of its folded logits) and in int8 (53 launches; logits equal to the
+     plain int8 network's; calibrated `auto` at level 3, then through the
+     scales cache); mirror TTA (`build_mirror_tta_apply`, 12 launches: its
+     logits within the fast-path gates of the ten-crop fast path, netM's
+     pooled features within the kernel gates of net's on the flipped
+     crops); images/s at batch 64 beside the device-TTA figure;
+  8. ISN: a scene-gated world at the published class counts (3 scenes,
+     70,179 geo-head outputs) whose scene head is the nearest-mean
+     classifier of three seeded image families (fit on the float32 module
+     path's features of 12 probe images), then on 8 new images of those
+     families: every scene routed to, the fast path (6 launches) within
+     the fast-path gates of the bf16 module path on the crops whose scene
+     margin exceeds the gate, int8 (53 launches, `auto` on its first batch)
+     equal to the plain int8 network and correlated >= 0.98 per head with
+     the float32 module path on such crops; images/s of each path;
+  9. one JSON line describing every kernel (with its launches per forward
+     on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
 (Pillow too, where it is installed, to make and decode JPEGs).
@@ -50,7 +74,9 @@ from __future__ import annotations
 import io
 import json
 import multiprocessing
+import os
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -61,8 +87,16 @@ import torch
 from geoestimation_tpu_torch.eval.engine import InferenceEngine
 from geoestimation_tpu_torch.eval.infer import mean_tta_logits, predict_all
 from geoestimation_tpu_torch.ingest import decode
-from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline_s8, shift_s8
+from geoestimation_tpu_torch.ingest.pipeline import (
+    eval_pipeline,
+    eval_pipeline_s8,
+    shift_s8,
+)
 from geoestimation_tpu_torch.models import quant
+from geoestimation_tpu_torch.models.fast_infer import (
+    build_fast_apply,
+    build_mirror_tta_apply,
+)
 from geoestimation_tpu_torch.ops import _build
 from geoestimation_tpu_torch.ops import conv_s8 as ops8
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
@@ -194,15 +228,16 @@ def ptxas_summary(report):
 
 # -- phase 2 -------------------------------------------------------------------
 
-def check_kernel(name, label, gen):
-    """One kernel against its plain version at each of its shapes; returns
-    its JSON entry (launches filled in from the main path's run)."""
+def check_kernel(name, label, gen, shapes=None):
+    """One kernel against its plain version at each of its shapes (by
+    default its SHAPES); returns its JSON entry (launches filled in from the
+    main path's run)."""
     kernel, plain = getattr(ops, name), getattr(ops, f"{name}_reference")
     stride = STRIDE[name]
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
               "bytes": 0}
     max_err = 0.0
-    for shape in SHAPES[name]:
+    for shape in SHAPES[name] if shapes is None else shapes:
         label_, n, h, w, cin, cmid, cout, proj, per_fwd = shape
         args = block_inputs(n, h, w, cin, cmid, cout, proj, gen)
         got = kernel(*args)
@@ -252,17 +287,19 @@ def check_kernel(name, label, gen):
     }
 
 
-def check_conv_s8(label, gen, ptxas):
+def check_conv_s8(label, gen, ptxas, shapes=None):
     """The int8 convolution against its plain version, bit for bit, at every
-    shape of the int8 ResNet50 (N = 80) and the tiling's edges, with the
-    plan each shape ran and the build's ptxas summary (None where the
-    library was built before this run); returns its JSON entry (launches
-    filled in from the int8 main path's run)."""
+    shape of the int8 ResNet50 (N = 80) and the tiling's edges, or at
+    `shapes`, with the plan each shape ran and the build's ptxas summary
+    (None where the library was built before this run); returns its JSON
+    entry (launches filled in from the int8 main path's run)."""
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0,
               "bytes": 0}
-    shapes = int8_conv_shapes()
-    assert sum(c for *_, c in shapes) == INT8_LAUNCHES, shapes
-    for label_, key, per_fwd in shapes + INT8_EDGES:
+    if shapes is None:
+        shapes = int8_conv_shapes()
+        assert sum(c for *_, c in shapes) == INT8_LAUNCHES, shapes
+        shapes = shapes + INT8_EDGES
+    for label_, key, per_fwd in shapes:
         args, kw = conv_s8_inputs(key, gen)
         got = ops8.conv_s8(*args, **kw)
         torch.cuda.synchronize()
@@ -354,23 +391,32 @@ def _images_per_s(engine, images, reps=5):
     return reps * len(images) / (time.perf_counter() - t0)
 
 
-def _hold_to_module(name, engine, module, x):
-    """The engine's per-crop logits against the unfolded module path's."""
-    for head, g, r in zip(engine.pred_keys, engine.crop_logits(x),
-                          module.crop_logits(x)):
+def _hold_logits(name, keys, got, ref, n_rows, rows=None, rtol=FAST_RTOL,
+                 atol=FAST_ATOL):
+    """Per-crop logits `got` against `ref` (lists over the heads `keys`):
+    finite, (n_rows, C), and within rtol/atol over the crops `rows` (all by
+    default)."""
+    for head, g, r in zip(keys, got, ref):
         if not (torch.isfinite(g).all() and g.shape == r.shape
-                == (10 * len(x), g.shape[-1])):
+                == (n_rows, g.shape[-1])):
             raise RuntimeError(f"{name}: bad logits for head {head}: "
                                f"{g.shape}")
+        if rows is not None:
+            g, r = g[rows], r[rows]
         err = float((g - r).abs().max())
         agree = float((g.argmax(-1) == r.argmax(-1)).float().mean())
-        if not torch.allclose(g, r, rtol=FAST_RTOL, atol=FAST_ATOL):
+        if not torch.allclose(g, r, rtol=rtol, atol=atol):
             raise RuntimeError(
-                f"{name} disagrees with the module path on head {head}: "
-                f"max_abs_err {err} (rtol {FAST_RTOL}, atol {FAST_ATOL})")
-        log(f"main path: {name} vs module logits, head {g.shape[-1]} "
-            f"classes: max_abs_err {err:.4f}, per-crop argmax agreement "
-            f"{agree:.4f}")
+                f"{name} disagrees on head {head}: max_abs_err {err} (rtol "
+                f"{rtol}, atol {atol})")
+        log(f"{name}, head {g.shape[-1]} wide, {len(g)} crops: "
+            f"max_abs_err {err:.4f}, per-crop argmax agreement {agree:.4f}")
+
+
+def _hold_to_module(name, engine, module, x):
+    """The engine's per-crop logits against the unfolded module path's."""
+    _hold_logits(f"main path: {name} vs module logits", engine.pred_keys,
+                 engine.crop_logits(x), module.crop_logits(x), 10 * len(x))
 
 
 def _drive(name, engine, images, want):
@@ -653,21 +699,25 @@ def _corr(g, r):
                                     + 1e-12))
 
 
-def _int8_checks(name, eng, fp32, x, crops_s8, n_images):
+def _int8_checks(name, eng, fp32, x, crops_s8, n_images, feature_tta=None,
+                 rows=None):
     """One predict_batch of an int8 engine with the count set to 0 just
     before: 53 launches; per-crop logits equal to the plain int8 network's
-    on the same scales, the predicted classes too; per-crop logits against
-    the float32 module path's. Returns the launches."""
+    on the same scales (`feature_tta` its feature-TTA form, fed the base
+    images `crops_s8`), the predicted classes too; unless `fp32` is None,
+    per-crop logits correlated with the float32 module path's, over the
+    crops `rows` (all by default). Returns the launches."""
     preds, launches = _int8_launches(lambda: eng.predict_batch(
         x.cpu().numpy()))
-    log(f"int8: {name} predict_batch({n_images} images x 10 crops): "
-        f"conv_s8 launches {launches} (want {INT8_LAUNCHES})")
+    log(f"int8: {name} predict_batch({n_images} images x {eng.n_crops} "
+        f"crops): conv_s8 launches {launches} (want {INT8_LAUNCHES})")
     if launches != INT8_LAUNCHES:
         raise RuntimeError(f"int8 {name}: {launches} conv_s8 launches in one "
                            f"forward, want {INT8_LAUNCHES}")
     _check_predictions(eng, preds, n_images)
     plain = quant.build_int8_apply(eng._qnet, eng.int8_scales,
-                                   n_classes=eng._n_classes, device="cuda",
+                                   n_classes=eng._n_classes,
+                                   feature_tta=feature_tta, device="cuda",
                                    plain=True)
     got, ref = eng.crop_logits(x), plain(crops_s8)
     for head, g, r in zip(eng.pred_keys, got, ref):
@@ -676,18 +726,23 @@ def _int8_checks(name, eng, fp32, x, crops_s8, n_images):
                 f"int8 {name}: logits differ from the plain int8 network on "
                 f"head {head}: max_abs_err {float((g - r).abs().max())}")
     plain_preds = predict_all(
-        [mean_tta_logits(r, 10, fold=eng.tta_fold) for r in ref], eng.harrays)
+        [mean_tta_logits(r, eng.n_crops, fold=eng.tta_fold) for r in ref],
+        eng.harrays)
     for key, (cls, _, _) in preds.items():
         if not np.array_equal(cls, plain_preds[key][0].cpu().numpy()):
             raise RuntimeError(f"int8 {name}: classes differ from the plain "
                                f"int8 network's on {key}")
+    if fp32 is None:
+        return launches
     corrs = {}
     for head, g, r in zip(eng.pred_keys, got, fp32.crop_logits(x)):
+        if rows is not None:
+            g, r = g[rows], r[rows]
         corrs[head] = _corr(g, r)
         agree = float((g.argmax(-1) == r.argmax(-1)).float().mean())
         log(f"int8: {name} vs float32 module logits, head {g.shape[-1]} "
-            f"classes: correlation {corrs[head]:.6f}, per-crop argmax "
-            f"agreement {agree:.4f}")
+            f"classes, {len(g)} crops: correlation {corrs[head]:.6f}, "
+            f"per-crop argmax agreement {agree:.4f}")
     if min(corrs.values()) < INT8_MIN_CORR:
         raise RuntimeError(f"int8 {name}: logit correlation {corrs} under "
                            f"{INT8_MIN_CORR}")
@@ -735,6 +790,228 @@ def phase_int8(label, engine, fast_ips, host_crops):
     return launches
 
 
+# -- phase 7 -------------------------------------------------------------------
+
+# The kernels' new shapes on the TTA variants, for 8 base images of 256 px:
+# feature TTA runs the stem, layer1 (64 wide) and layer2 (32 wide) once on
+# the bases and their mirrors (N = 16); mirror TTA and ISN meet the main
+# path's shapes. The stride-2 kernel meets the 64-wide layer2 entry only
+# under use_pallas_s2, which no CLI sets.
+FTTA_N = 16
+TTA_SHAPES = {
+    "fused_bottleneck": [
+        ("ftta layer1.0 64x64 64-64-256 proj", FTTA_N, 64, 64, 64, 64, 256,
+         True, 1),
+        ("ftta layer1.1-2 64x64 256-64-256", FTTA_N, 64, 64, 256, 64, 256,
+         False, 2),
+        ("ftta layer2.1-3 32x32 512-128-512", FTTA_N, 32, 32, 512, 128, 512,
+         False, 3),
+    ],
+    "fused_bottleneck_s2": [
+        ("ftta layer2.0 64x64 256-128-512 (use_pallas_s2)", FTTA_N, 64, 64,
+         256, 128, 512, True, 0),
+    ],
+}
+WANT_MIRROR = (12, 0)     # net and netM, each the default path's 6
+FTTA_LEVELS = ((3, 8), (1, 4), (2, 4))    # (level, images): level 3 first
+
+
+def ftta_conv_shapes(n=FTTA_N):
+    """The int8 feature-TTA trunk's convolutions on 256-px bases (the stem
+    over a 132-wide space-to-depth buffer, layer1 at 64, layer2 at 64 and
+    32, layer3 at 32 and 16) with their launches per forward; layer4 runs
+    per window at the main path's shapes."""
+    return [s for s in int8_conv_shapes(n, crop=256)
+            if not s[0].startswith("layer4")]
+
+
+def _same_answers(name, eng, preds, logits):
+    """predict_batch's classes are those of the per-crop logits, folded."""
+    want = predict_all([mean_tta_logits(l, eng.n_crops, fold=eng.tta_fold)
+                        for l in logits], eng.harrays)
+    for key, (cls, _, _) in preds.items():
+        if not np.array_equal(cls, want[key][0].cpu().numpy()):
+            raise RuntimeError(f"{name}: predict_batch's classes differ from "
+                               f"its folded crop logits on {key}")
+
+
+def _feature_tta(label, engine, images, cache):
+    """Feature TTA at each level through `InferenceEngine`: bf16 on the
+    kernels (6 launches a forward, logits within the fast-path gates of the
+    cuDNN route at the same level) and int8 (53 launches, logits equal to
+    the plain int8 network's; calibrated at level 3, then through the scales
+    cache). Returns (launches, the level-3 engines)."""
+    x = torch.as_tensor(images, device="cuda")
+    launches, engines = {}, {}
+    for level, n in FTTA_LEVELS:
+        kw = dict(tta_mode="feature", feature_tta_level=level)
+        fast = engine(fast=True, use_pallas=True, **kw)
+        name = f"feature TTA level {level}"
+        preds, launches[level] = _drive(name, fast, images[:n], WANT_DEFAULT)
+        logits = fast.crop_logits(x[:n])
+        _same_answers(name, fast, preds, logits)
+        _hold_logits(f"tta: {name} kernels vs cuDNN route", fast.pred_keys,
+                     logits, engine(fast=True, use_pallas=False,
+                                    **kw).crop_logits(x[:n]), 10 * n)
+        int8 = engine(int8=True, int8_scales_path=cache, **kw)
+        int8.predict_batch(images[:n])       # calibrates, or reads the cache
+        log(f"tta: int8 {name}: scales from {int8.int8_calib_source}, stat "
+            f"{int8.int8_calib_stat}")
+        launches[f"int8 {level}"] = _int8_checks(
+            f"feature TTA level {level}", int8, None, x[:n], shift_s8(x[:n]),
+            n, feature_tta={"crop": 224, "n_crops": 10, "level": level})
+        if level == 3:
+            engines = {"fast": fast, "int8": int8}
+    return launches, engines
+
+
+def phase_tta(label, engine, fast, sd, ptxas, fast_ips):
+    """The TTA variants (module docs, 7); returns each kernel's launches
+    per forward on them."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    sums = [check_kernel(name, label, gen, shapes)
+            for name, shapes in TTA_SHAPES.items()]
+    sums.append(check_conv_s8(label, gen, ptxas.get("conv_s8"),
+                              ftta_conv_shapes()))
+    sums = [e for e in sums if e["ms"]]     # the kernels feature TTA runs
+    log("tta kernel sums " + json.dumps({
+        "what": "new shapes of feature TTA's trunk, summed over its launches "
+                f"per forward of 8 base images (N = {FTTA_N})",
+        "kernels": [{k: e[k] for k in ("name", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")} for e in sums],
+        "card": label}))
+    rng = np.random.default_rng(world.SEED + 1)     # phase 3's images
+    images = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    batch = rng.integers(0, 256, (64, 256, 256, 3), dtype=np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, ftta = _feature_tta(label, engine, images,
+                                      os.path.join(tmp, "int8_scales.json"))
+        device_preds = fast.predict_batch(images)
+        same = {k: float(np.mean(device_preds[k][0]
+                                 == ftta["fast"].predict_batch(images)[k][0]))
+                for k in device_preds}
+        log(f"tta: predicted-class agreement feature TTA level 3 vs device "
+            f"ten-crop {same}")
+        ftta_ips, n_fast = _counted(lambda: _images_per_s(ftta["fast"], batch))
+        int8_ips, n_int8 = _int8_launches(
+            lambda: _images_per_s(ftta["int8"], batch))
+
+    # mirror TTA: five crops through net and netM
+    x = torch.as_tensor(images, device="cuda")
+    kw = dict(n_classes=world.REAL_CLASS_COUNTS, device="cuda")
+    mirror = build_mirror_tta_apply(sd, world.ARCH, **kw)
+    got, launches["mirror"] = _counted(lambda: mirror(x))
+    log(f"tta: mirror TTA (8 images x 5 crops x {{net, netM}}): launches "
+        f"fused_bottleneck {launches['mirror'][0]}, fused_bottleneck_s2 "
+        f"{launches['mirror'][1]} (want {WANT_MIRROR})")
+    if launches["mirror"] != WANT_MIRROR:
+        raise RuntimeError(f"mirror TTA: launches {launches['mirror']}, want "
+                           f"{WANT_MIRROR}")
+    _hold_logits("tta: mirror TTA vs device ten-crop fast path",
+                 fast.pred_keys, got, fast.crop_logits(x), 80)
+    crops = eval_pipeline(x, n_crops=5)
+    net, net_m = (build_fast_apply(sd, world.ARCH, mirror=m, **kw)
+                  for m in (False, True))
+    pooled = []
+    for apply, v in ((net_m, crops), (net, crops.flip(2))):
+        for fn in apply.stage_fns:
+            v = fn(v)
+        pooled.append(v.mean(dim=(2, 3), dtype=torch.float32))
+    _hold_logits("tta: netM(crop) vs net(flip(crop)) pooled features",
+                 ["features"], pooled[:1], pooled[1:], 40, rtol=KERNEL_RTOL,
+                 atol=KERNEL_ATOL)
+    harrays = fast.harrays
+    xb = torch.as_tensor(batch, device="cuda")
+    device_ms = time_ms(lambda: world.forward(fast._fast_apply, harrays)(xb),
+                        reps=10)
+    mirror_ms = time_ms(lambda: predict_all(
+        [mean_tta_logits(l, 10) for l in mirror(xb)], harrays), reps=10)
+    log("tta throughput " + json.dumps({
+        "metric": "ten-crop images/s", "batch": 64,
+        "predict_batch": {"feature_tta_l3_bf16": ftta_ips,
+                          "feature_tta_l3_int8": int8_ips,
+                          "device_tta_bf16_phase3": fast_ips},
+        "device_forward": {"mirror_tta_bf16": 64e3 / mirror_ms,
+                           "device_tta_bf16": 64e3 / device_ms},
+        "launches_per_forward": {"feature_bf16": [c / 6 for c in n_fast],
+                                 "feature_int8": n_int8 / 6},
+        "card": label}))
+    if tuple(c / 6 for c in n_fast) != WANT_DEFAULT or n_int8 != 6 * \
+            INT8_LAUNCHES:
+        raise RuntimeError(f"feature TTA: launches {n_fast}, {n_int8} in 6 "
+                           "forwards")
+    return launches
+
+
+# -- phase 8 -------------------------------------------------------------------
+
+def _scene_logits(model, x, dtype):
+    return model.with_scene(eval_pipeline(x, dtype=dtype))[0]
+
+
+def _decisive(scene_logits):
+    """Crops whose top-two scene margin exceeds the fast path's logit gate
+    at the top logit: their route must not depend on the path."""
+    top = scene_logits.topk(2, dim=-1).values
+    return (top[:, 0] - top[:, 1]) > FAST_ATOL + FAST_RTOL * top[:, 0].abs()
+
+
+def phase_isn(label):
+    """ISN (module docs, 8); returns each kernel's launches on it."""
+    config, sd, parts = world.build_world(n_scenes=3)
+
+    def engine(**kw):
+        return InferenceEngine(config, sd, partitionings=parts, n_crops=10,
+                               device="cuda", **kw)
+
+    rng = np.random.default_rng(world.SEED + 4)
+    probe = torch.as_tensor(world.scene_images(rng, 12), device="cuda")
+    fp32 = engine(dtype=torch.float32)
+    with torch.inference_mode():
+        feats = fp32.model.features(eval_pipeline(probe,
+                                                  dtype=torch.float32))
+    world.fit_scene_head(sd, feats, torch.arange(120) // 10 % 3)
+    del fp32, feats
+    log("isn: world with scene head fit to 12 probe images of 3 families; "
+        f"heads {world.REAL_CLASS_COUNTS} x 3 scenes = "
+        f"{sd['scene_geo_heads.weight'].shape[0]} outputs")
+    images = world.scene_images(rng, 8)
+    x = torch.as_tensor(images, device="cuda")
+    module, fp32 = engine(), engine(dtype=torch.float32)
+    fast = engine(fast=True, use_pallas=True)
+    with torch.inference_mode():
+        scene_bf16 = _scene_logits(module.model, x, torch.bfloat16)
+        scene_fp32 = _scene_logits(fp32.model, x, torch.float32)
+    routes = torch.bincount(scene_bf16.argmax(-1), minlength=3).tolist()
+    log(f"isn: module path routes crops to scenes {routes} (80 crops)")
+    if min(routes) == 0:
+        raise RuntimeError(f"isn: a scene is never routed to: {routes}")
+    rows = _decisive(scene_bf16)
+    preds, (n_fast, _) = _drive("isn fast", fast, images, WANT_DEFAULT)
+    _same_answers("isn fast", fast, preds, fast.crop_logits(x))
+    _hold_logits("isn: fast vs module path on decisive crops",
+                 fast.pred_keys, fast.crop_logits(x), module.crop_logits(x),
+                 80, rows=rows)
+    int8 = engine(int8=True)
+    int8.predict_batch(images)                      # calibrates: auto
+    log(f"isn: int8 calibrated on its first batch: stat "
+        f"{int8.int8_calib_stat}, KL {json.dumps(int8.int8_calib_kls)}")
+    n_int8 = _int8_checks("isn", int8, fp32, x, eval_pipeline_s8(x), 8,
+                          rows=_decisive(scene_fp32))
+    batch = world.scene_images(rng, 64)
+    ips = {}
+    for name, eng in (("module_bf16", module), ("fast_pallas", fast),
+                      ("int8", int8)):
+        ips[name] = _images_per_s(eng, batch)
+    log("isn throughput " + json.dumps({
+        "metric": "predict_batch ten-crop images/s", "batch": 64, **ips,
+        "decisive_crops": {"bf16": int(rows.sum()),
+                           "fp32": int(_decisive(scene_fp32).sum())},
+        "card": label}))
+    return {"fused_bottleneck": n_fast, "conv_s8": n_int8}
+
+
 def main():
     t0 = time.perf_counter()
     label, ptxas = phase_device()
@@ -748,10 +1025,26 @@ def main():
     launches, fast, module, fast_ips = phase_main_path(label, engine)
     host_crops = phase_host_exact(engine, module)
     server_line = phase_server(label, fast)
-    del fast, module
+    del module
     launches["conv_s8"] = phase_int8(label, engine, fast_ips, host_crops)
+    tta = phase_tta(label, engine, fast, sd, ptxas, fast_ips)
+    del fast
+    isn = phase_isn(label)
+    by_path = {
+        "fused_bottleneck": {
+            "device_tta": launches["fused_bottleneck"],
+            **{f"feature_tta_l{lv}": tta[lv][0] for lv, _ in FTTA_LEVELS},
+            "mirror_tta": tta["mirror"][0], "isn": isn["fused_bottleneck"]},
+        "fused_bottleneck_s2": {"device_tta_use_pallas_s2":
+                                launches["fused_bottleneck_s2"]},
+        "conv_s8": {"int8": launches["conv_s8"],
+                    **{f"int8_feature_tta_l{lv}": tta[f"int8 {lv}"]
+                       for lv, _ in FTTA_LEVELS},
+                    "int8_isn": isn["conv_s8"]},
+    }
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
+        entry["launches_by_path"] = by_path[entry["name"]]
     log(f"card: {label}; wall {time.perf_counter() - t0:.1f} s")
     print("server " + json.dumps(server_line))
     print(json.dumps({"kernels": kernels}))

@@ -14,8 +14,6 @@ import torch
 
 # flag -> (default, ROADMAP.md Queue 1 item that ports it)
 NOT_PORTED = {
-    "feature_tta": (False, "TTA variants"),
-    "feature_tta_level": (3, "TTA variants"),
     "coordinator": (None, "Training"),
     "num_processes": (None, "Training"),
     "process_id": (None, "Training"),
@@ -59,14 +57,24 @@ def add_shared_args(p: argparse.ArgumentParser):
                         "the full resized rectangle, not of a center "
                         "square): strict parity on non-square images for "
                         "imported reference checkpoints; forces --crops 10")
-    not_ported = "not ported yet (see ROADMAP.md)"
-    p.add_argument("--feature_tta", action="store_true", help=not_ported)
-    p.add_argument("--feature_tta_level", type=int, default=3,
-                   choices=[1, 2, 3], help=not_ported)
+    add_feature_tta_args(p)
     add_calib_args(p)
+    not_ported = "not ported yet (see ROADMAP.md)"
     p.add_argument("--coordinator", default=None, help=not_ported)
     p.add_argument("--num_processes", type=int, default=None, help=not_ported)
     p.add_argument("--process_id", type=int, default=None, help=not_ported)
+
+
+def add_feature_tta_args(p: argparse.ArgumentParser):
+    p.add_argument("--feature_tta", action="store_true",
+                   help="feature-space ten-crop TTA: run the trunk once "
+                        "per base image and crop at the layer3 feature "
+                        "map (approximate at crop borders)")
+    p.add_argument("--feature_tta_level", type=int, default=3,
+                   choices=[1, 2, 3],
+                   help="with --feature_tta: backbone stage whose feature "
+                        "map is cropped (3 = least trunk work; 2 runs "
+                        "layer3+4 per crop)")
 
 
 def add_calib_args(p: argparse.ArgumentParser):
@@ -129,8 +137,10 @@ def make_engine(args, use_pallas=False):
                      args.checkpoint, os.getcwd()],
         fast=args.fast,
         use_pallas=use_pallas,
-        tta_mode="host_exact" if args.exact_tta else "device",
+        tta_mode=("feature" if args.feature_tta
+                  else "host_exact" if args.exact_tta else "device"),
         tta_fold=args.tta_fold,
+        feature_tta_level=args.feature_tta_level,
         fast_decode=args.fast_decode,
         device="cpu" if args.cpu else "cuda",
         **int8_kwargs(args),

@@ -3,7 +3,8 @@
     python -m geoestimation_tpu_torch.classification.inference \\
         --checkpoint DIR --image_dir IMAGES [--output preds.csv] \\
         [--precision 8|16|32] [--crops 1|5|10] [--exact_tta] \\
-        [--fast [--pallas]] [--calib_dir DIR] [--calib_stat auto] [--cpu]
+        [--feature_tta [--feature_tta_level 1|2|3]] [--fast [--pallas]] \\
+        [--calib_dir DIR] [--calib_stat auto] [--cpu]
 
 Writes a CSV of (img_id, p_key, pred_class, pred_lat, pred_lng) rows, one
 per partitioning key including `hierarchy` (reference README.md:98-124).

@@ -3,7 +3,8 @@
     python -m geoestimation_tpu_torch.classification.test \\
         --checkpoint DIR --image_dirs D1 [D2 ...] --meta_files M1 [M2 ...] \\
         [--precision 8|16|32] [--crops 1|5|10] [--exact_tta] [--fast] \\
-        [--calib_dir DIR] [--json out.json] [--cpu]
+        [--feature_tta [--feature_tta_level 1|2|3]] [--calib_dir DIR] \\
+        [--json out.json] [--cpu]
 
 Each meta CSV has the columns IMG_ID, LAT, LON; prints GCD threshold
 accuracies at {1, 25, 200, 750, 2500} km per partitioning and for the

@@ -2,12 +2,13 @@
 
 `from_jax_variables` takes the `{"params", "batch_stats"}` trees of a
 `geoestimation_tpu` checkpoint as numpy arrays and returns the state dict of
-`models.classifier.MultiPartitioningClassifier`, under torchvision's keys (the
-keys `tools/import_torch_checkpoint.py` reads, behind a `backbone.` prefix):
+`models.classifier.MultiPartitioningClassifier` (or, for an ISN checkpoint,
+`models.isn.ISNClassifier`), under torchvision's keys (the keys
+`tools/import_torch_checkpoint.py` reads, behind a `backbone.` prefix):
 conv kernels HWIO -> OIHW, BatchNorm scale/bias/mean/var -> weight/bias/
-running_mean/running_var, and the fused head kept as one Linear with its
-kernel transposed. The inverse of that tool's `convert_backbone` and
-`find_heads`.
+running_mean/running_var, and each Linear head (the fused head, or ISN's
+`scene_head` and `scene_geo_heads`) kept as one Linear with its kernel
+transposed. The inverse of that tool's `convert_backbone` and `find_heads`.
 """
 
 from __future__ import annotations
@@ -27,9 +28,6 @@ def _tensor(a):
 def from_jax_variables(params, batch_stats, arch: str,
                        n_classes: Sequence[int]) -> dict:
     """numpy trees -> {key: float32 CPU tensor} for the port's model."""
-    if "scene_head" in params:
-        raise NotImplementedError(
-            "ISN checkpoints are not ported yet (ROADMAP.md Queue 1, 'ISN')")
     if arch not in STAGE_SIZES:
         raise ValueError(f"unknown arch {arch!r}; have {sorted(STAGE_SIZES)}")
     sd = {}
@@ -45,6 +43,14 @@ def from_jax_variables(params, batch_stats, arch: str,
         sd[f"{dst}.running_var"] = _tensor(s["var"])
         sd[f"{dst}.num_batches_tracked"] = torch.tensor(0)
 
+    def linear(dst, p, n_out):
+        kernel = np.asarray(p["kernel"], np.float32)
+        if kernel.shape[1] != n_out:
+            raise ValueError(f"{dst} has {kernel.shape[1]} outputs; the "
+                             f"partitionings need {n_out}")
+        sd[f"{dst}.weight"] = _tensor(kernel.T)
+        sd[f"{dst}.bias"] = _tensor(p["bias"])
+
     conv("backbone.conv1", bb_p["conv1"])
     bn("backbone.bn1", bb_p["bn1"], bb_s["bn1"])
     for stage, n_blocks in enumerate(STAGE_SIZES[arch]):
@@ -59,11 +65,12 @@ def from_jax_variables(params, batch_stats, arch: str,
                 conv(f"{dst}.downsample.0", p["downsample_conv"])
                 bn(f"{dst}.downsample.1", p["downsample_bn"],
                    s["downsample_bn"])
-    head = params["heads"]["fused_head"]
-    kernel = np.asarray(head["kernel"], np.float32)
-    if kernel.shape[1] != sum(n_classes):
-        raise ValueError(f"fused head has {kernel.shape[1]} outputs; the "
-                         f"partitionings need {sum(n_classes)}")
-    sd["heads.fused_head.weight"] = _tensor(kernel.T)
-    sd["heads.fused_head.bias"] = _tensor(head["bias"])
+    if "scene_head" in params:
+        n_scenes = np.shape(params["scene_head"]["kernel"])[1]
+        linear("scene_head", params["scene_head"], n_scenes)
+        linear("scene_geo_heads", params["scene_geo_heads"],
+               n_scenes * sum(n_classes))
+    else:
+        linear("heads.fused_head", params["heads"]["fused_head"],
+               sum(n_classes))
     return sd

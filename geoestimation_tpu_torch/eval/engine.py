@@ -1,13 +1,16 @@
 """Batched inference engine: images -> per-partitioning + f* predictions.
 
-The port of `geoestimation_tpu/eval/engine.py` (device TTA and host-exact
-ten-crop). One forward takes the uint8 host batch to the device, normalizes
-and crops it there (or only normalizes the host's exact ten-crops),
-runs the classifier -- the module path, the BN-folded fast path with the
-fused CUDA bottleneck kernel, or the int8 path (`models/quant.py`, every
-conv on the int8 CUDA kernel, calibrated on first use) -- folds the crops,
-applies the f* rule, and returns predicted classes and coordinates for
-every partitioning key plus 'hierarchy' in one small transfer.
+The port of `geoestimation_tpu/eval/engine.py` (device TTA, host-exact
+ten-crop and feature-space TTA). One forward takes the uint8 host batch to
+the device, normalizes and crops it there (or only normalizes the host's
+exact ten-crops, or for feature TTA the base image, whose crops are taken
+from a feature map), runs the classifier -- the module path, the BN-folded
+fast path with the fused CUDA bottleneck kernel, or the int8 path
+(`models/quant.py`, every conv on the int8 CUDA kernel, calibrated on first
+use) -- folds the crops, applies the f* rule, and returns predicted classes
+and coordinates for every partitioning key plus 'hierarchy' in one small
+transfer. An ISN checkpoint (scene-gated heads, `models/isn.py`) runs on
+every path: each builds its heads from the checkpoint.
 
 Runs on CUDA unless `device="cpu"` is asked for; there is no fallback from
 one to the other.
@@ -28,7 +31,7 @@ from ..ingest.pipeline import (
     normalize,
     shift_s8,
 )
-from ..models.classifier import MultiPartitioningClassifier
+from ..train.init import model_from_config
 from .infer import TTA_FOLDS, HierarchyArrays, mean_tta_logits, predict_all
 from .metrics import DEFAULT_THRESHOLDS_KM, GcdAccumulator, gcd_threshold_counts
 
@@ -97,6 +100,7 @@ class InferenceEngine:
         layout=None,
         tta_mode: str = "device",
         tta_fold: str = "prob_mean",
+        feature_tta_level: int = 3,
         int8: bool = False,
         int8_scales_path: Optional[str] = None,
         calib_dir: Optional[str] = None,
@@ -119,9 +123,14 @@ class InferenceEngine:
         the stride-2 stage entries whose input width is a multiple of 8
         through the stride-2 kernel (no CLI sets it, as in the JAX package;
         chip_smoke.py and the bench tools do). tta_mode: 'device' (crops
-        from a 256 square on the device) or 'host_exact' (torchvision-exact
+        from a 256 square on the device), 'host_exact' (torchvision-exact
         host ten-crop of the full resized rectangle, for parity on
-        non-square images; forces n_crops=10). tta_fold: how per-crop
+        non-square images; forces n_crops=10) or 'feature' (approximate:
+        the trunk runs once on the base image and its mirror, and the crops
+        are taken at the layer{feature_tta_level} feature map,
+        `models/fast_infer.py` `build_feature_tta_apply`; 5 or 10 crops; in
+        bf16 it is the folded path, so it takes `use_pallas` and refuses
+        float32). tta_fold: how per-crop
         logits combine (eval.infer.mean_tta_logits). fast_decode: scaled
         DCT JPEG decode on the host (calibration batches too). device:
         'cuda' (default) or 'cpu'.
@@ -144,18 +153,16 @@ class InferenceEngine:
         """
         if layout is not None:
             _not_ported("sharded eval (layout)", "Training")
-        if tta_mode == "feature":
-            _not_ported("tta_mode='feature'", "TTA variants")
-        if tta_mode not in ("device", "host_exact"):
+        if tta_mode not in ("device", "host_exact", "feature"):
             raise ValueError(f"unknown tta_mode {tta_mode!r}")
+        if tta_mode == "feature" and n_crops not in (5, 10):
+            raise ValueError("feature TTA supports 5 or 10 crops")
         if tta_mode == "host_exact":
             n_crops = 10
         if tta_fold not in TTA_FOLDS:
             raise ValueError(
                 f"unknown tta_fold {tta_fold!r}; have {TTA_FOLDS}")
         mp = config.model_params
-        if mp.scene_gating:
-            _not_ported("ISN (scene_gating)", "ISN")
         self.device = resolve_device(device)
         if partitionings is None:
             paths = resolve_partitioning_paths(mp.partitionings.files,
@@ -171,10 +178,11 @@ class InferenceEngine:
         self.dtype = dtype
         self.tta_mode = tta_mode
         self.tta_fold = tta_fold
+        self._feature_tta_level = feature_tta_level
         self._fast_decode = fast_decode
         n_classes = tuple(len(p) for p in partitionings)
         self.model = None
-        self._fast_apply = None
+        self._fast_apply = None   # the fast path's, or feature TTA's, apply
         self._int8 = int8
         self._int8_apply = None   # built at the first batch, after calibration
         if int8:
@@ -193,6 +201,19 @@ class InferenceEngine:
             self._int8_persist = int8_persist
             self._int8_recalibrate = int8_recalibrate
             self.int8_calib_kls = None   # {stat: KL} of an 'auto' calibration
+        elif tta_mode == "feature":
+            # the folded network computes in bf16: refuse a float32 request
+            if dtype != torch.bfloat16:
+                raise ValueError(
+                    "feature TTA runs the bf16 folded-BN network; "
+                    "--precision 32 is not available in this mode "
+                    "(use --precision 16, or drop --feature_tta)")
+            from ..models.fast_infer import build_feature_tta_apply
+
+            self._fast_apply = build_feature_tta_apply(
+                state_dict, mp.arch, n_classes=n_classes,
+                use_pallas=use_pallas, crop=crop, n_crops=n_crops,
+                level=feature_tta_level, device=self.device)
         elif fast:
             # The fold computes in bf16; refuse a float32 request instead of
             # returning bf16 results labeled fp32.
@@ -209,7 +230,7 @@ class InferenceEngine:
                 device=self.device)
         else:
             with torch.device("meta"):
-                model = MultiPartitioningClassifier(n_classes, mp.arch, dtype)
+                model = model_from_config(config, n_classes, dtype)
             model.load_state_dict(state_dict, strict=True, assign=True)
             self.model = model.to(
                 self.device, memory_format=torch.channels_last).eval()
@@ -410,8 +431,12 @@ class InferenceEngine:
         self.int8_calib_source = source
         self.int8_calib_stat = stat_used
         self.int8_scales = scales
+        feature_tta = ({"crop": self.crop, "n_crops": self.n_crops,
+                        "level": self._feature_tta_level}
+                       if self.tta_mode == "feature" else None)
         self._int8_apply = build_int8_apply(
-            self._qnet, scales, n_classes=self._n_classes, device=self.device)
+            self._qnet, scales, n_classes=self._n_classes,
+            feature_tta=feature_tta, device=self.device)
 
     @torch.inference_mode()
     def crop_logits(self, images_u8):
@@ -419,15 +444,21 @@ class InferenceEngine:
         crops (B, n_crops, crop, crop, 3) -> list of per-head
         (B * n_crops, C) float32 logits. An int8 engine calibrates on these
         images if it has not yet."""
+        feature = self.tta_mode == "feature"
         if self._int8:
             if self._int8_apply is None:
                 self._build_int8(images_u8.cpu().numpy())
-            if images_u8.ndim == 5:
+            if feature:
+                # the base image: the crops are taken at a feature map
+                x = shift_s8(images_u8)
+            elif images_u8.ndim == 5:
                 x = shift_s8(images_u8.reshape((-1,) + images_u8.shape[-3:]))
             else:
                 x = eval_pipeline_s8(images_u8, n_crops=self.n_crops,
                                      crop=self.crop)
             return self._int8_apply(x.contiguous())
+        if feature:
+            return self._fast_apply(normalize(images_u8, torch.bfloat16))
         if images_u8.ndim == 5:
             # host-precropped: normalize only, crops folded into the batch
             x = normalize(images_u8.reshape((-1,) + images_u8.shape[-3:]),

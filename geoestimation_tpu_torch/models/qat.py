@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ingest.decode import IMAGENET_MEAN
+from .isn import route_rows
 from .quant import (_folded_blocks, _folded_conv, _oihw, _stem_fold,
                     folded_trunk)
 from .resnet import BN_EPSILON
@@ -44,18 +45,22 @@ def fold_variables(state_dict, arch="resnet50", eps=BN_EPSILON,
     """The port's state dict -> the folded float32 network on `device`:
     {"stem": (kernel, bias), "blocks": [(name, stride, {conv: (kernel,
     bias)})], "heads": {"fused_head": {"kernel", "bias"}}}, the convs laid
-    out as `quant._oihw` does and the head kernel (in, out)."""
+    out as `quant._oihw` does and the head kernels (in, out); an ISN
+    checkpoint's heads are {"scene_head": ..., "scene_geo_heads": ...}."""
     device = torch.device(device)
-    if any(k.startswith("scene") for k in state_dict):
-        raise NotImplementedError(
-            "ISN checkpoints are not ported yet (ROADMAP.md Queue 1 item 8, "
-            "'ISN')")
     wp, bpp, _ = _stem_fold(state_dict, eps)
-    w = state_dict["heads.fused_head.weight"]
-    heads = {"fused_head": {
-        "kernel": w.detach().to(device, torch.float32).t(),
-        "bias": state_dict["heads.fused_head.bias"].detach().to(
-            device, torch.float32)}}
+
+    def linear(name):
+        return {"kernel": state_dict[f"{name}.weight"].detach().to(
+                    device, torch.float32).t(),
+                "bias": state_dict[f"{name}.bias"].detach().to(
+                    device, torch.float32)}
+
+    if "scene_head.weight" in state_dict:
+        heads = {"scene_head": linear("scene_head"),
+                 "scene_geo_heads": linear("scene_geo_heads")}
+    else:
+        heads = {"fused_head": linear("heads.fused_head")}
     return {"stem": _oihw(wp, bpp, device),
             "blocks": _folded_blocks(state_dict, arch, eps, device),
             "heads": heads}
@@ -69,7 +74,8 @@ def build_qat_apply(arch, act_scales, n_classes=None, fake_quant=True):
     original network (the teacher of `quant.autoselect_scales`), with the
     stem's borders padded with the exact dataset mean, then the calibration
     traversal's trunk (`quant.folded_trunk`: relu at the lo=0 requant
-    sites, the stage-entry conv3 un-clipped), and float32 heads.
+    sites, the stage-entry conv3 un-clipped), and float32 heads (an ISN
+    checkpoint's routed by the scene argmax).
     `act_scales` and `arch` (carried by `folded`) are unused then, as
     `act_scales` is in the JAX package."""
     if fake_quant:
@@ -87,8 +93,20 @@ def build_qat_apply(arch, act_scales, n_classes=None, fake_quant=True):
             + pad_val[:, None, None]
         y = torch.relu(_folded_conv(xp, folded["stem"], 2))
         feats = folded_trunk(y, folded["blocks"]).mean(dim=(2, 3))
-        head = folded["heads"]["fused_head"]
-        logits = feats @ head["kernel"] + head["bias"]
+        heads = folded["heads"]
+        if "scene_geo_heads" in heads:
+            # ISN: each row routed to its predicted scene, as the int8
+            # path serves it
+            scene = heads["scene_head"]
+            route = (feats @ scene["kernel"] + scene["bias"]).argmax(-1)
+            geo = heads["scene_geo_heads"]
+            flat = feats @ geo["kernel"] + geo["bias"]
+            logits = route_rows(flat.reshape(flat.shape[0],
+                                             scene["bias"].shape[0], -1),
+                                route)
+        else:
+            head = heads["fused_head"]
+            logits = feats @ head["kernel"] + head["bias"]
         if n_classes is None:
             return logits
         return list(torch.split(logits, tuple(n_classes), dim=-1))

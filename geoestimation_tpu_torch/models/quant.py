@@ -28,10 +28,12 @@ integer math as the 7x7 stride-2 conv.
 quantized network keeps the JAX package's block names (`layer{s}_block{b}`)
 and HWIO int8 weights, so `weights_hash` of a checkpoint equals the JAX
 package's and a scales cache written by either package is accepted by the
-other. Not ported yet: int8 feature TTA (ROADMAP.md Queue 1 item 7), ISN
-heads (item 8), and the TPU perf probe `GEO_REQUANT_PROBE`; the JAX
-package's `GEO_POOL_MODE` picks between two bit-identical pool forms, and
-the port has one.
+other. The heads run in bf16 as the fast path's (`fast_infer.head_forward`,
+an ISN checkpoint's scene routing included); `feature_tta` runs the stem and
+layer1..level once on the base image (and its mirror) and the rest per
+window, with the fast path's feature-TTA geometry. Not ported: the TPU perf
+probe `GEO_REQUANT_PROBE`; the JAX package's `GEO_POOL_MODE` picks between
+two bit-identical pool forms, and the port has one.
 """
 
 from __future__ import annotations
@@ -46,6 +48,14 @@ import torch.nn.functional as F
 from ..ingest.decode import IMAGENET_MEAN, IMAGENET_STD
 from ..ingest.pipeline import eval_pipeline, eval_pipeline_s8
 from ..ops.conv_s8 import conv_s8, conv_s8_reference
+from .fast_infer import (
+    check_feature_tta,
+    check_square,
+    ftta_mirror_concat,
+    ftta_windows,
+    head_forward,
+    head_weights,
+)
 from .resnet import BN_EPSILON, STAGE_SIZES
 
 _QMAX = 127.0
@@ -176,10 +186,15 @@ def quantize_model(state_dict, arch="resnet50", eps=BN_EPSILON):
             kq, sw = _quant_weight(k)
             qb[cname] = (kq, sw, b.astype(np.float32))
         blocks[name] = qb
-    isn = any(k.startswith("scene") for k in sd)
-    heads = {} if isn else {"heads": {"fused_head": {
-        "kernel": np.ascontiguousarray(_np(sd, "heads.fused_head.weight").T),
-        "bias": _np(sd, "heads.fused_head.bias")}}}
+    # the heads only, in the JAX package's layout: (in, out) kernels
+    def linear(name):
+        return {"kernel": np.ascontiguousarray(_np(sd, f"{name}.weight").T),
+                "bias": _np(sd, f"{name}.bias")}
+
+    isn = "scene_head.weight" in sd
+    heads = ({"scene_head": linear("scene_head"),
+              "scene_geo_heads": linear("scene_geo_heads")} if isn
+             else {"heads": {"fused_head": linear("heads.fused_head")}})
     return {
         "arch": arch,
         "stage_sizes": stage_sizes,
@@ -550,15 +565,9 @@ def _int8_net(qnet, n_classes=None, feature_tta=None, device="cuda",
     logits]`, with
     `.stem_fn`, `.block_fns` (taking the prefolded multipliers too) and
     `.head_logits` for the tests. `plain` runs every conv through the
-    kernel's plain version (the card's yardstick of the kernel)."""
-    if feature_tta is not None:
-        raise NotImplementedError(
-            "int8 feature TTA is not ported yet (ROADMAP.md Queue 1 item 7, "
-            "'TTA variants')")
-    if qnet["isn"]:
-        raise NotImplementedError(
-            "int8 ISN heads are not ported yet (ROADMAP.md Queue 1 item 8, "
-            "'ISN')")
+    kernel's plain version (the card's yardstick of the kernel).
+    `feature_tta` ({"crop", "n_crops", "level"}, defaults 224, 10, 3): the
+    forward takes square base images and runs feature-space TTA."""
     if os.environ.get("GEO_REQUANT_PROBE", ""):
         raise NotImplementedError(
             "GEO_REQUANT_PROBE (a TPU perf probe, never for serving) is not "
@@ -630,18 +639,21 @@ def _int8_net(qnet, n_classes=None, feature_tta=None, device="cuda",
                  for name, _, stride in _block_names(qnet["stage_sizes"])]
 
     # --- heads: bf16 on the mean of the last int8 map times its scale ---
-    head = qnet["heads"]["heads"]["fused_head"]
-    head_w = dev(head["kernel"].T, torch.float32).to(torch.bfloat16).float()
-    head_b = dev(head["bias"], torch.float32)
+    def linear(h):
+        return torch.from_numpy(np.asarray(h["kernel"]).T), \
+            torch.from_numpy(np.asarray(h["bias"]))
+
+    h = qnet["heads"]
+    heads = (head_weights(linear(h["scene_geo_heads"]),
+                          linear(h["scene_head"]), device) if qnet["isn"]
+             else head_weights(linear(h["heads"]["fused_head"]),
+                               device=device))
 
     def head_logits(x, pf):
         # an exact float32 sum of int8 values, divided: the JAX mean's value
         feats = (x.to(torch.float32).sum(dim=(1, 2))
                  / (x.shape[1] * x.shape[2])) * float(pf["s_last"])
-        logits = F.linear(feats.to(torch.bfloat16).float(), head_w, head_b)
-        if n_classes is None:
-            return logits
-        return list(torch.split(logits, tuple(n_classes), dim=-1))
+        return head_forward(feats, heads, n_classes)
 
     @torch.inference_mode()
     def forward(images_s8, pf):
@@ -650,6 +662,28 @@ def _int8_net(qnet, n_classes=None, feature_tta=None, device="cuda",
             x = blk(x, pf)
         return head_logits(x, pf)
 
+    def feature_forward(crop, n_crops, level):
+        stage_sizes = qnet["stage_sizes"]
+        check_feature_tta(n_crops, level, len(stage_sizes), "feature_tta")
+        n_trunk = sum(stage_sizes[:level])
+
+        @torch.inference_mode()
+        def forward(base_s8, pf):
+            b, s = check_square(base_s8)
+            x = stem_fn(ftta_mirror_concat(base_s8, n_crops), pf)
+            for blk in block_fns[:n_trunk]:
+                x = blk(x, pf)
+            xc = ftta_windows(x, b, s, crop, n_crops, level)
+            for blk in block_fns[n_trunk:]:
+                xc = blk(xc, pf)
+            return head_logits(xc, pf)
+
+        return forward
+
+    if feature_tta is not None:
+        forward = feature_forward(int(feature_tta.get("crop", 224)),
+                                  int(feature_tta.get("n_crops", 10)),
+                                  int(feature_tta.get("level", 3)))
     forward.stem_fn = stem_fn
     forward.block_fns = block_fns
     forward.head_logits = head_logits
@@ -661,7 +695,9 @@ def build_int8_apply(qnet, act_scales, n_classes=None, feature_tta=None,
     """Returns `apply(images_s8) -> [per-head float32 logits]`.
 
     `images_s8`: (pixel - 128) int8 crops (B, H, W, 3), H and W even, on
-    `device` (`ingest.pipeline.eval_pipeline_s8`). `qnet` from
+    `device` (`ingest.pipeline.eval_pipeline_s8`); with `feature_tta`
+    ({"crop", "n_crops", "level"}), the square base images
+    (`ingest.pipeline.shift_s8`), giving (B * n_crops) rows. `qnet` from
     `quantize_model`, `act_scales` {site: scale} from `calibrate`. Every
     conv launches `ops.conv_s8` (its plain version on the CPU, or everywhere
     with `plain=True`). `apply.stem_fn(x)`, `apply.block_fns[i](x)` and

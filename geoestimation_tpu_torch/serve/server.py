@@ -15,7 +15,7 @@ Endpoints:
                     seconds spent in `predict_batch`)
 
 Run: python -m geoestimation_tpu_torch.serve --checkpoint DIR [--port 8500]
-     [--cpu]
+     [--crops 5|10 --feature_tta] [--cpu]
 Runs on CUDA unless --cpu.
 """
 
@@ -29,8 +29,12 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from ..classification._cli import NOT_PORTED as CLI_NOT_PORTED
-from ..classification._cli import add_calib_args, check_ported, int8_kwargs
+from ..classification._cli import (
+    add_calib_args,
+    add_feature_tta_args,
+    check_ported,
+    int8_kwargs,
+)
 
 
 class _Pending:
@@ -246,11 +250,7 @@ class GeoInferenceServer:
 
 
 # flag -> (default, ROADMAP.md Queue 1 item that ports it)
-NOT_PORTED = {
-    **{flag: CLI_NOT_PORTED[flag] for flag in (
-        "feature_tta", "feature_tta_level")},
-    "shard_batch": (False, "Training"),
-}
+NOT_PORTED = {"shard_batch": (False, "Training")}
 
 
 def build_parser():
@@ -281,12 +281,10 @@ def build_parser():
     p.add_argument("--fast_decode", action="store_true",
                    help="scaled DCT JPEG decode for request images (faster "
                         "on large photos; slightly different pixels)")
-    not_ported = "not ported yet (see ROADMAP.md)"
-    p.add_argument("--feature_tta", action="store_true", help=not_ported)
-    p.add_argument("--feature_tta_level", type=int, default=3,
-                   choices=[1, 2, 3], help=not_ported)
+    add_feature_tta_args(p)
     add_calib_args(p)
-    p.add_argument("--shard_batch", action="store_true", help=not_ported)
+    p.add_argument("--shard_batch", action="store_true",
+                   help="not ported yet (see ROADMAP.md)")
     return p
 
 
@@ -298,8 +296,11 @@ def main(argv=None):
     from ..checkpoint import load_checkpoint
     from ..eval.engine import InferenceEngine
 
-    args = build_parser().parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
     check_ported(args, NOT_PORTED)  # before the checkpoint load
+    if args.feature_tta and args.crops == 1:
+        p.error("--feature_tta needs --crops 5 or 10")
     config, state_dict = load_checkpoint(args.checkpoint,
                                          hparams_path=args.hparams)
     # A synthetic int8 warmup (no --calib_dir) may calibrate on noise: fit
@@ -310,6 +311,8 @@ def main(argv=None):
     engine = InferenceEngine(
         config, state_dict, n_crops=args.crops, fast=args.fast,
         dtype=torch.float32 if args.precision == 32 else torch.bfloat16,
+        tta_mode="feature" if args.feature_tta else "device",
+        feature_tta_level=args.feature_tta_level,
         fast_decode=args.fast_decode,
         search_dirs=[os.path.dirname(os.path.abspath(args.checkpoint)),
                      args.checkpoint, os.getcwd()],

@@ -32,10 +32,11 @@ limit. Cases:
                launches issued back to back, as a forward issues them.
   e2e          the whole ten-crop forward at batch 64 (ingest, ResNet50,
                heads, f*) on the seeded full-width world (`tools/world.py`),
-               for the unfolded module path and the fast-path variants
+               for the unfolded module path, the fast-path variants
                fast-noPallas, fast-L1, fast-L2, fast-L1L2 and fast-L1L2-s2
-               (use_pallas_s2). The JAX tool's mirror variants wait for
-               mirror TTA (ROADMAP.md Queue 1, 'TTA variants').
+               (use_pallas_s2), and the JAX tool's mirror-TTA variants
+               mirror-noPallas and mirror-L2 (five crops through the network
+               and its W-mirror, `build_mirror_tta_apply`).
 
 With no case named it runs every case but e2e. Each case's line gives the
 plan its kernel chose (`ops.fused_bottleneck.kernel_plan`,
@@ -53,7 +54,8 @@ import torch
 import torch.nn.functional as F
 
 from ..eval.engine import InferenceEngine
-from ..models.fast_infer import build_fast_apply
+from ..eval.infer import mean_tta_logits, predict_all
+from ..models.fast_infer import build_fast_apply, build_mirror_tta_apply
 from ..models.resnet import STAGE_SIZES
 from ..ops import conv_s8 as ops8
 from ..ops.fused_bottleneck import (
@@ -179,6 +181,10 @@ FAST_VARIANTS = {
     "fast-L1L2-s2": dict(use_pallas=True, pallas_stages={0: 1, 1: 2},
                          use_pallas_s2=True),
 }
+
+
+# The JAX tool's mirror-TTA variants: pallas_stages by name.
+MIRROR_VARIANTS = {"mirror-noPallas": {}, "mirror-L2": {1: 2}}
 
 
 def int8_conv_shapes(n=80, arch="resnet50", crop=224):
@@ -369,13 +375,21 @@ def bench_e2e(label, batch=64, reps=10):
     images = torch.as_tensor(
         rng.integers(0, 256, (batch, 256, 256, 3), dtype=np.uint8),
         device="cuda")
-    variants = [("module", module.model)] + [
-        (name, build_fast_apply(sd, world.ARCH,
-                                n_classes=world.REAL_CLASS_COUNTS,
-                                device="cuda", **kw))
-        for name, kw in FAST_VARIANTS.items()]
-    for name, apply in variants:
-        run = world.forward(apply, module.harrays)
+    kw = dict(n_classes=world.REAL_CLASS_COUNTS, device="cuda")
+    variants = [("module", world.forward(module.model, module.harrays))] + [
+        (name, world.forward(build_fast_apply(sd, world.ARCH, **kw, **v),
+                             module.harrays))
+        for name, v in FAST_VARIANTS.items()]
+    # mirror TTA takes the uint8 batch and cuts its own crops
+    for name, stages in MIRROR_VARIANTS.items():
+        mirror = build_mirror_tta_apply(sd, world.ARCH, **kw,
+                                        use_pallas=bool(stages),
+                                        pallas_stages=stages)
+        variants.append((name, torch.inference_mode()(
+            lambda x, mirror=mirror: predict_all(
+                [mean_tta_logits(l, 10) for l in mirror(x)],
+                module.harrays))))
+    for name, run in variants:
         fused_bottleneck.launches = fused_bottleneck_s2.launches = 0
         run(images)
         launches = (fused_bottleneck.launches, fused_bottleneck_s2.launches)

@@ -4,7 +4,9 @@
 at the published class counts 3298/7202/12893 (coarse/middle/fine), random
 weights made from a seed in the JAX package's tree layout and passed through
 the weights bridge (`convert.from_jax_variables`), and three nested S2
-partitionings at those counts. Needs no data and no network.
+partitionings at those counts. Needs no data and no network. With
+`n_scenes=3` it is an ISN world (`models/isn.py`): a scene head and
+3 x (3298 + 7202 + 12893) = 70,179 scene geo-head outputs.
 
 `forward(apply, harrays)` is the engine's own device pipeline around any
 `apply`: eval_pipeline -> apply -> mean_tta_logits -> predict_all.
@@ -48,10 +50,12 @@ def seeded_partitionings(rng, counts=REAL_CLASS_COUNTS):
     return parts
 
 
-def seeded_jax_variables(rng, arch, n_classes):
+def seeded_jax_variables(rng, arch, n_classes, n_scenes=None):
     """Random weights in the JAX package's tree layout (numpy): He-normal
     HWIO kernels, BatchNorm with unit-scale statistics and small residual
-    scales (bn3) so 16 blocks stay in range."""
+    scales (bn3) so 16 blocks stay in range. With `n_scenes`, ISN's heads
+    (`scene_head`, `scene_geo_heads`) in place of the fused head; the scene
+    head's bias is zero, so the features alone pick each row's scene."""
     def normal(shape, std):
         return (rng.standard_normal(shape, dtype=np.float32)
                 * np.float32(std))
@@ -83,22 +87,72 @@ def seeded_jax_variables(rng, arch, n_classes):
                 p["downsample_bn"], s["downsample_bn"] = bn(4 * mid)
             params[name], stats[name] = p, s
             cin = 4 * mid
-    head = {"kernel": normal((FEATURE_DIM, sum(n_classes)),
-                             FEATURE_DIM ** -0.5),
-            "bias": normal((sum(n_classes),), 0.1)}
-    return ({"backbone": params, "heads": {"fused_head": head}},
-            {"backbone": stats})
+    def linear(n_out, bias_std=0.1):
+        return {"kernel": normal((FEATURE_DIM, n_out), FEATURE_DIM ** -0.5),
+                "bias": normal((n_out,), bias_std)}
+
+    if n_scenes:
+        heads = {"scene_head": linear(n_scenes, 0.0),
+                 "scene_geo_heads": linear(n_scenes * sum(n_classes))}
+    else:
+        heads = {"heads": {"fused_head": linear(sum(n_classes))}}
+    return {"backbone": params, **heads}, {"backbone": stats}
 
 
-def build_world(seed=SEED, arch=ARCH, counts=REAL_CLASS_COUNTS):
+def build_world(seed=SEED, arch=ARCH, counts=REAL_CLASS_COUNTS,
+                n_scenes=None):
     """(config, state_dict, partitionings) made from `seed`; the weights go
-    through the weights bridge from the JAX layout."""
+    through the weights bridge from the JAX layout. `n_scenes`: an ISN
+    world (scene-gated config and heads)."""
     rng = np.random.default_rng(seed)
     parts = seeded_partitionings(rng, counts)
-    params, stats = seeded_jax_variables(rng, arch, counts)
+    params, stats = seeded_jax_variables(rng, arch, counts, n_scenes)
     config = Config()
     config.model_params.arch = arch
+    if n_scenes:
+        config.model_params.scene_gating = True
+        config.model_params.n_scenes = n_scenes
     return config, from_jax_variables(params, stats, arch, counts), parts
+
+
+def scene_images(rng, n, size=256):
+    """n seeded uint8 (size, size, 3) images of three families, image i of
+    family i % 3 (an ISN world's scenes): a dark vertical gradient, green
+    noise, gray vertical stripes, each under pixel noise of its own."""
+    ramp = np.linspace(0, 1, size, dtype=np.float32)
+    stripes = np.sign(np.sin(2 * np.pi * ramp * size / 16))
+    out = np.empty((n, size, size, 3), np.float32)
+    for i in range(n):
+        family = i % 3
+        if family == 0:
+            base = (40 + 120 * ramp)[:, None, None] * np.ones((1, size, 3))
+        elif family == 1:
+            base = np.array([60, 150, 50], np.float32) + rng.normal(
+                0, 40, (size, size, 3))
+        else:
+            base = (128 + 60 * stripes)[None, :, None] * np.ones((size, 1, 3))
+        out[i] = base + rng.normal(0, 12, (size, size, 3))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def fit_scene_head(state_dict, feats, scenes, margin=4.0):
+    """Sets an ISN state dict's scene head to the nearest-mean classifier
+    of float32 pooled features `feats` (N, F) labelled `scenes` (N,), so
+    that each family of `scene_images` routes to its own scene: row s is
+    c (mu_s - mu), bias -c (mu_s - mu) . (mu_s + mu) / 2 (mu_s the family
+    means, mu their mean), with c putting `margin` between the closest two
+    family means. Returns the state dict."""
+    feats = feats.double().cpu()
+    mus = torch.stack([feats[scenes == s].mean(0)
+                       for s in range(int(scenes.max()) + 1)])
+    mu = mus.mean(0)
+    closest = min(float(((mus[s] - mus[t]) ** 2).sum())
+                  for s in range(len(mus)) for t in range(s))
+    c = 2 * margin / closest
+    state_dict["scene_head.weight"] = (c * (mus - mu)).float()
+    state_dict["scene_head.bias"] = (
+        -c * ((mus - mu) * (mus + mu)).sum(1) / 2).float()
+    return state_dict
 
 
 def forward(apply, harrays, n_crops=10, crop=224, fold="prob_mean"):

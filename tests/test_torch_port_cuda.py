@@ -370,3 +370,49 @@ def test_int8_network_on_the_kernel_matches_plain(cuda):
     ref = quant.build_int8_apply(qnet, scales, device=cuda, plain=True)(x)
     assert port_conv.conv_s8.launches == before + 17
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+# -- the TTA variants' new shapes (feature TTA's trunk on 256-px bases) -----------
+
+@pytest.mark.parametrize("name, shape", [
+    ("fused_bottleneck", (4, 64, 64, 64, 64, 256, True)),      # layer1.0
+    ("fused_bottleneck", (4, 64, 64, 256, 64, 256, False)),    # layer1.1-2
+    ("fused_bottleneck", (4, 32, 32, 512, 128, 512, False)),   # layer2.1-3
+    ("fused_bottleneck_s2", (4, 64, 64, 256, 128, 512, True)),  # layer2.0
+])
+def test_kernels_match_plain_at_feature_tta_shapes(cuda, name, shape):
+    """The bf16 kernels on feature TTA's 64- and 32-wide planes (the
+    stride-2 one only under use_pallas_s2)."""
+    args = block_args(*shape, device=cuda)
+    kernel = getattr(port_fb, name)
+    before = kernel.launches
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    ref = getattr(port_fb, f"{name}_reference")(*args)
+    torch.testing.assert_close(got.float(), ref.float(), rtol=0.05,
+                               atol=0.05)
+    assert (got == ref).float().mean() > 0.9
+
+
+def _ftta_conv_shapes():
+    from geoestimation_tpu_torch.tools.bench_kernels import int8_conv_shapes
+
+    return [(label, key) for label, key, _ in int8_conv_shapes(2, crop=256)
+            if not label.startswith("layer4")]
+
+
+@pytest.mark.parametrize("label, key", _ftta_conv_shapes(),
+                         ids=[label for label, _ in _ftta_conv_shapes()])
+def test_conv_s8_matches_plain_at_feature_tta_shapes(cuda, label, key):
+    """conv_s8 bit for bit at every convolution of the int8 feature-TTA
+    trunk on 256-px bases: the stem over a 132-wide space-to-depth buffer
+    (128 x 128 outputs), layer1 at 64, layer2 at 64 and 32, layer3 at 32
+    and 16."""
+    n, h, cin, cout, k, stride, pad, out_hw, lo, res_mode = key
+    args, kw = conv_args(n, h, cin, cout, k, stride, pad, out_hw, res_mode,
+                         device=cuda)
+    got = port_conv.conv_s8(*args, lo=lo, **kw)
+    torch.cuda.synchronize()
+    ref = port_conv.conv_s8_reference(*args, lo=lo, **kw)
+    assert torch.equal(got, ref)

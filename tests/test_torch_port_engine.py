@@ -6,6 +6,7 @@ import ast
 import io
 import os
 import pathlib
+import shutil
 import subprocess
 import sys
 
@@ -339,12 +340,51 @@ def test_inference_cli_fast_kernel_path_on_cpu(world, tmp_path, tta):
     ["--feature_tta_level", "2"], ["--num_processes", "2"],
     ["--coordinator", "localhost:1234"],
 ])
-def test_cli_refuses_flags_not_ported(world, flags):
+def test_cli_refuses_flags_not_ported(world, flags, tmp_path,
+                                      jax_pil_decode):
+    """The multi-process flags exit, naming their ROADMAP.md item. The
+    feature-TTA flags, refused here until the TTA variants were ported, do
+    what the JAX CLI does with them on the same checkpoint and images:
+    --feature_tta gives its predicted classes (bf16), and with --precision 8
+    its rows on the same scales (the port's calib_dir cache, which the JAX
+    CLI takes as its own); --feature_tta_level alone changes nothing."""
+    from classification.inference import main as jax_main
+
     from geoestimation_tpu_torch.classification.inference import main
 
-    with pytest.raises(SystemExit, match="not ported yet"):
-        main(["--checkpoint", world["port"], "--image_dir", world["images"],
-              "--cpu"] + flags)
+    common = ["--image_dir", world["images"], "--cpu"] + flags
+    if "--feature_tta" not in flags and "--feature_tta_level" not in flags:
+        with pytest.raises(SystemExit, match="not ported yet"):
+            main(["--checkpoint", world["port"]] + common)
+        return
+    int8 = "8" in flags
+    common += ["--batch_size", "8"]
+    if int8:
+        common += ["--crops", "5", "--calib_dir", world["images"],
+                   "--calib_images", "2", "--calib_stat", "absmax"]
+    caches = [os.path.join(world[k], "int8_scales.json")
+              for k in ("port", "jax")]
+    try:
+        main(["--checkpoint", world["port"], "--output",
+              str(tmp_path / "port.csv")] + common)
+        if int8:
+            shutil.copy(caches[0], caches[1])
+        jax_main(["--checkpoint", world["jax"], "--output",
+                  str(tmp_path / "jax.csv")] + common)
+    finally:
+        for path in caches:
+            if os.path.exists(path):
+                os.remove(path)
+    ref = pd.read_csv(tmp_path / "jax.csv")
+    got = pd.read_csv(tmp_path / "port.csv")
+    assert len(got) == len(ref) == 7 * 4
+    assert (got.img_id == ref.img_id).all() and (got.p_key == ref.p_key).all()
+    np.testing.assert_array_equal(got.pred_class, ref.pred_class)
+    if int8:
+        np.testing.assert_allclose(got.pred_lat, ref.pred_lat, rtol=0,
+                                   atol=1e-5)
+        np.testing.assert_allclose(got.pred_lng, ref.pred_lng, rtol=0,
+                                   atol=1e-5)
 
 
 def test_cli_runs_on_cuda_unless_asked_for_cpu(world, monkeypatch):

@@ -278,7 +278,7 @@ def _port_routes(monkeypatch, calls):
                                dtype=torch.bfloat16)
         return rec
 
-    def conv(x, weights, stride):
+    def conv(x, weights, stride, mirror=False):
         b, c, h, w = x.shape
         calls.append(("conv", (b, h, w, c)))
         out = torch.zeros((b, weights[2][0].shape[0], h // stride,

@@ -309,7 +309,84 @@ def test_module_runs_on_cuda_unless_asked_for_cpu(servers):
     (["--precision", "8", "--calib_dir", "x", "--shard_batch"], "Training"),
     (["--shard_batch"], "Training"),
 ])
-def test_main_refuses_flags_not_ported(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=f"not ported yet.*{item}"):
-        port_server.main(["--checkpoint", str(tmp_path / "none"), "--cpu"]
-                         + flags)
+def test_main_refuses_flags_not_ported(tmp_path, flags, item, request,
+                                      monkeypatch, capsys):
+    """--shard_batch exits, naming its ROADMAP.md item. The feature-TTA
+    flags, refused here until the TTA variants were ported, do what the JAX
+    server does with them: --feature_tta at the default --crops 1 exits
+    with its message (the port before loading the checkpoint, the JAX
+    server after); --feature_tta_level alone starts a device-TTA server."""
+    if item == "Training":
+        with pytest.raises(SystemExit, match=f"not ported yet.*{item}"):
+            port_server.main(["--checkpoint", str(tmp_path / "none"),
+                              "--cpu"] + flags)
+        return
+    from geoestimation_tpu.serve import server as jax_server
+
+    jax_ckpt = request.getfixturevalue("jax_ckpt")
+    port_ckpt = request.getfixturevalue("servers")["ckpt"]
+    modes = []
+    for mod in (jax_server, port_server):
+        monkeypatch.setattr(mod.GeoInferenceServer, "serve_forever",
+                            lambda self: modes.append(self.engine.tta_mode))
+    common = ["--cpu", "--host", "127.0.0.1", "--port", "0"] + flags
+    if "--feature_tta" in flags:
+        message = "--feature_tta needs --crops 5 or 10"
+        for main, ckpt in ((jax_server.main, jax_ckpt),
+                           (port_server.main, str(tmp_path / "none"))):
+            capsys.readouterr()
+            with pytest.raises(SystemExit) as e:
+                main(["--checkpoint", ckpt] + common)
+            assert e.value.code == 2 and message in capsys.readouterr().err
+        assert modes == []
+    else:
+        jax_server.main(["--checkpoint", jax_ckpt] + common)
+        port_server.main(["--checkpoint", port_ckpt] + common)
+        assert modes == ["device", "device"]
+
+
+@pytest.fixture(scope="module")
+def jax_ckpt(geo_parts, tmp_path_factory):
+    """An orbax checkpoint of the JAX package (resnet14) for its server."""
+    from geoestimation_tpu.train.checkpoint import save_single
+    from geoestimation_tpu.train.init import init_model_state
+    from geoestimation_tpu.utils.config import Config as JaxConfig
+
+    root = tmp_path_factory.mktemp("jax_serve")
+    config = JaxConfig()
+    config.model_params.arch = "resnet14"
+    config.model_params.partitionings.files = []
+    for p in geo_parts:
+        config.model_params.partitionings.files.append(
+            str(root / f"{p.name}.csv"))
+        p.to_csv(config.model_params.partitionings.files[-1])
+    _, state = init_model_state(config, geo_parts, seed=0, image_size=64)
+    save_single(str(root / "ckpt"), state, config=config, step=0,
+                metrics={"val_loss": 1.0})
+    return str(root / "ckpt")
+
+
+def test_main_serves_feature_tta(servers, monkeypatch):
+    """`main --feature_tta --crops 5`: the server answers with
+    `predict_batch` of a feature-TTA engine on the same image."""
+    answers, engines = [], []
+
+    def serve_once(self):
+        self.start_background()
+        answers.append(post(self, jpeg_bytes(6))["predictions"])
+        engines.append(self.engine)
+        self.close()
+
+    monkeypatch.setattr(GeoInferenceServer, "serve_forever", serve_once)
+    port_server.main(["--checkpoint", servers["ckpt"], "--cpu", "--host",
+                      "127.0.0.1", "--port", "0", "--batch_size", "1",
+                      "--crops", "5", "--feature_tta", "--feature_tta_level",
+                      "2"])
+    engine = engines[0]
+    assert (engine.tta_mode, engine.n_crops) == ("feature", 5)
+    images, ok = port_decode.decode_batch([jpeg_bytes(6)])
+    assert ok.all()
+    want = engine.predict_batch(images)
+    assert answers[0] == {k: {"class": int(c[0]), "lat": float(la[0]),
+                              "lng": float(ln[0])}
+                          for k, (c, la, ln) in want.items()}
