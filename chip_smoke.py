@@ -62,15 +62,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      margin exceeds the gate, int8 (53 launches, `auto` on its first batch)
      equal to the plain int8 network and correlated >= 0.98 per head with
      the float32 module path on such crops; images/s of each path;
-  9. one JSON line describing every kernel (with its launches per forward
+  9. training at baseM's full width: a seeded shard world (4 x 384
+     training and 64 validation JPEG records at 256-320 px, labels over
+     the three partitionings at the published class counts) trained for
+     12 steps by `train_base.main` (ResNet50 bf16, batch 256 at 224 px,
+     train_crop_scale (0.66, 1.0), the baseM recipe), validated and
+     checkpointed at each epoch end: the loss per step (finite), train
+     images/s past the first two steps, peak memory and the host's wait
+     for batches, no kernel launched by a train step; `bench_train` at
+     batch 256 with and without remat, and on one more step: a finite
+     loss, every parameter updated as the optimizer computed, and each
+     BatchNorm's running
+     statistics 0.9 * old + 0.1 * a plain float32 mean and biased variance
+     of its input in that step, and the device time by operator of two
+     steps (torch.profiler); an overfit check (25 steps on one batch of 64
+     center crops, the last loss under half the first); then the best
+     checkpoint served by `InferenceEngine` on the default fast path
+     (6 fused_bottleneck launches a forward, logits within the fast-path
+     gates of the module path, the same predicted classes) on 8 of the
+     validation images;
+ 10. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
-(Pillow too, where it is installed, to make and decode JPEGs).
+(Pillow too, where it is installed, to make and decode JPEGs; phase 9
+needs it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import multiprocessing
@@ -84,6 +105,9 @@ import urllib.request
 import numpy as np
 import torch
 
+from geoestimation_tpu_torch.checkpoint import load_checkpoint
+from geoestimation_tpu_torch.classification import train_base
+from geoestimation_tpu_torch.data import shards
 from geoestimation_tpu_torch.eval.engine import InferenceEngine
 from geoestimation_tpu_torch.eval.infer import mean_tta_logits, predict_all
 from geoestimation_tpu_torch.ingest import decode
@@ -92,7 +116,7 @@ from geoestimation_tpu_torch.ingest.pipeline import (
     eval_pipeline_s8,
     shift_s8,
 )
-from geoestimation_tpu_torch.models import quant
+from geoestimation_tpu_torch.models import quant, resnet
 from geoestimation_tpu_torch.models.fast_infer import (
     build_fast_apply,
     build_mirror_tta_apply,
@@ -101,7 +125,7 @@ from geoestimation_tpu_torch.ops import _build
 from geoestimation_tpu_torch.ops import conv_s8 as ops8
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
 from geoestimation_tpu_torch.serve import GeoInferenceServer
-from geoestimation_tpu_torch.tools import world
+from geoestimation_tpu_torch.tools import bench_train, world
 from geoestimation_tpu_torch.tools.bench_kernels import (
     INT8_EDGES,
     INT8_LAUNCHES,
@@ -121,6 +145,9 @@ from geoestimation_tpu_torch.tools.card import (
     require_cuda,
     time_ms,
 )
+from geoestimation_tpu_torch.train.optim import Optimizer, constant_schedule
+from geoestimation_tpu_torch.train.step import train_step
+from geoestimation_tpu_torch.utils.config import load_config
 
 # (label, N, H, W, Cin, Cmid, Cout, projection, launches per forward) of
 # each kernel: the blocks of ResNet50 at 224 px that the main paths send to
@@ -1012,6 +1039,259 @@ def phase_isn(label):
     return {"fused_bottleneck": n_fast, "conv_s8": n_int8}
 
 
+# -- phase 9 -------------------------------------------------------------------
+
+TRAIN_STEPS = 12
+TRAIN_BATCH = 256
+OVERFIT_BATCH = 64
+BN_RTOL, BN_ATOL = 1e-3, 1e-5   # fast against two-pass float32 variance
+
+
+class _Stamped(io.TextIOBase):
+    """Stdout that also keeps each line with the time it was written."""
+
+    def __init__(self, out):
+        self.out, self.lines, self._buf = out, [], ""
+
+    def write(self, text):
+        self.out.write(text)
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((time.perf_counter(), line))
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _all_launches():
+    return (ops.fused_bottleneck.launches, ops.fused_bottleneck_s2.launches,
+            ops8.conv_s8.launches)
+
+
+def _fit(label, path):
+    """train_base.main on the world at `path`; returns the trainer and the
+    kernels' launches during it. The host's wait for batches is reported
+    against the wall from the start of main to the last step."""
+    ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
+    ops8.conv_s8.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    out = _Stamped(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        trainer = train_base.main(["--config", path, "--max_steps",
+                                   str(TRAIN_STEPS), "--no_resume"])
+    wall = time.perf_counter() - t0
+    launches = _all_launches()
+    steps, after_epoch_end = [], set()
+    for t, line in out.lines:
+        if line.startswith("step "):
+            head = line.split()
+            steps.append((int(head[1].split("/")[0]), t, float(head[3])))
+        elif line.startswith(("epoch end @", "val @")) and steps:
+            after_epoch_end.add(steps[-1][0] + 1)
+    losses = [loss for _, _, loss in steps]
+    if [k for k, _, _ in steps] != list(range(1, TRAIN_STEPS + 1)) or \
+            not all(np.isfinite(losses)):
+        raise RuntimeError(f"train: steps {[k for k, _, _ in steps]}, "
+                           f"losses {losses}")
+    # steps 3..12, leaving out the intervals that hold a validation and a
+    # checkpoint
+    dts = [t - steps[i - 1][1] for i, (k, t, _) in enumerate(steps)
+           if k >= 3 and k not in after_epoch_end]
+    line = {
+        "metric": "Trainer.fit via train_base.main", "steps": TRAIN_STEPS,
+        "batch": TRAIN_BATCH, "losses": losses,
+        "images_per_s_after_step_2": TRAIN_BATCH / float(np.mean(dts)),
+        "ms_per_step_after_step_2": 1e3 * float(np.mean(dts)),
+        "steps_timed": len(dts),
+        "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "batch_wait_s": trainer.batch_wait_s,
+        "batch_wait_share": trainer.batch_wait_s / (steps[-1][1] - t0),
+        "wall_s": wall, "card": label}
+    log("train fit " + json.dumps(line))
+    if launches != (0, 0, 0):
+        raise RuntimeError(f"train: the train steps launched kernels "
+                           f"{launches}")
+    return trainer, launches
+
+
+def _bn_checked_step(state, step):
+    """One more bench step with each BatchNorm's input measured plainly: the
+    loss finite; every parameter p_before - lr * trace, the update the
+    optimizer computed (SGD, no weight decay), and some changed; the running
+    statistics 0.9 * old + 0.1 * (float32 mean, biased two-pass
+    variance)."""
+    model = state.model
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    old = {id(m): (m.running_mean.clone(), m.running_var.clone())
+           for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)}
+    seen = []
+    plain = resnet.batch_norm_train
+
+    def recording(x, bn):
+        var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3),
+                                   unbiased=False)
+        seen.append((bn, mean, var))
+        return plain(x, bn)
+
+    resnet.batch_norm_train = recording
+    try:
+        metrics = step()
+    finally:
+        resnet.batch_norm_train = plain
+    loss = float(metrics["loss"])
+    opt = state.optimizer
+    lr = opt.schedule(opt.count - 1)
+    params = list(model.named_parameters())
+    off = [n for (n, p), t in zip(params, opt.slots["trace"])
+           if not torch.equal(p, before[n] - lr * t)]
+    changed = sum(not torch.equal(p, before[n]) for n, p in params)
+    worst = 0.0
+    for bn, mean, var in seen:
+        old_mean, old_var = old[id(bn)]
+        for got, want in ((bn.running_mean, 0.9 * old_mean + 0.1 * mean),
+                          (bn.running_var, 0.9 * old_var + 0.1 * var)):
+            err = ((got - want).abs() / (BN_ATOL + BN_RTOL * want.abs()))
+            worst = max(worst, float(err.max()))
+    log(f"train: bench step checks: loss {loss:.4f}; {len(params)} "
+        f"parameters, {len(params) - len(off)} updated as the optimizer "
+        f"computed, {changed} changed (an update under half a float32 ulp "
+        f"leaves a value as it was); {len(seen)} BatchNorms held to a plain "
+        f"float32 recomputation (worst at {worst:.4f} of rtol {BN_RTOL}, "
+        f"atol {BN_ATOL})")
+    if not np.isfinite(loss) or off or not changed or worst > 1 or \
+            len(seen) != len(old):
+        raise RuntimeError(f"train: bench step: loss {loss}, not updated "
+                           f"{off[:5]}, changed {changed}, BatchNorms "
+                           f"{len(seen)} of {len(old)}, worst {worst}")
+
+
+def _profile(label, step, step_ms):
+    """Device time by operator over two bench steps (torch.profiler; each
+    kernel counted once, under the operator that launched it), and the
+    device's busy share of an unprofiled step of `step_ms`."""
+    kind = torch.autograd.DeviceType
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == kind.CUDA) / 2e3
+    by_op = sorted((e for e in events if e.device_type == kind.CPU
+                    and e.self_device_time_total > 0),
+                   key=lambda e: e.self_device_time_total, reverse=True)
+    log("train profile " + json.dumps({
+        "what": "bench_train step at batch 256, device ms a step by "
+                "operator (its kernels' self time, mean of two steps)",
+        "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
+        "device_busy_share": busy_ms / step_ms,
+        "top": {e.key: e.self_device_time_total / 2e3 for e in by_op[:14]},
+        "card": label}))
+
+
+def _bench(label):
+    """bench_train at batch 256 with and without remat; the checks of
+    `_bn_checked_step` on the plain one."""
+    out = {}
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state, _, _, step = bench_train.setup(TRAIN_BATCH, remat=remat)
+        ms, metrics = bench_train.measure(step, 10, torch.device("cuda"))
+        out["remat" if remat else "plain"] = {
+            "ms_per_step": ms, "images_per_s": TRAIN_BATCH * 1e3 / ms,
+            "loss": float(metrics["loss"]),
+            "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+        if not remat:
+            _bn_checked_step(state, step)
+            _profile(label, step, ms)
+        del state, step
+    log("train bench " + json.dumps({
+        "metric": "bench_train ResNet50 bf16 train step", "batch":
+        TRAIN_BATCH, "iters": 10, **out, "card": label}))
+
+
+def _overfit():
+    """25 steps on one fixed batch of 64 center crops (augment=False), SGD
+    lr 0.05 momentum 0.9 as tests/test_train.py: the last loss under half
+    the first."""
+    state, images, labels, _ = bench_train.setup(OVERFIT_BATCH, seed=1)
+    state.optimizer = Optimizer(state.model.parameters(),
+                                constant_schedule(0.05), momentum=0.9)
+    losses = []
+    for _ in range(25):
+        _, metrics = train_step(state, images, labels, 0, augment=False)
+        losses.append(float(metrics["loss"]))
+    log(f"train: overfit on one batch of {OVERFIT_BATCH}: losses "
+        f"{[round(x, 4) for x in losses]}")
+    if not losses[-1] < 0.5 * losses[0]:
+        raise RuntimeError(f"train: overfit: last loss {losses[-1]} not "
+                           f"under half the first {losses[0]}")
+
+
+def _serve_trained(ckpt, val_pattern):
+    """The best checkpoint on the default fast path against the module
+    path, on 8 validation images; returns fused_bottleneck's launches."""
+    config, sd = load_checkpoint(ckpt)
+    recs = list(shards.iter_records([val_pattern]))[:8]
+    images, ok = decode.decode_batch([r["image"] for r in recs])
+    assert ok.all()
+
+    def engine(**kw):
+        return InferenceEngine(config, sd, n_crops=10, device="cuda", **kw)
+
+    fast, module = engine(fast=True, use_pallas=True), engine()
+    preds, (launches, _) = _drive("train: trained checkpoint", fast, images,
+                                  WANT_DEFAULT)
+    x = torch.as_tensor(images, device="cuda")
+    _hold_logits("train: trained checkpoint fast vs module logits",
+                 fast.pred_keys, fast.crop_logits(x), module.crop_logits(x),
+                 10 * len(images))
+    ref = module.predict_batch(images)
+    for key, (cls, _, _) in preds.items():
+        if not np.array_equal(cls, ref[key][0]):
+            raise RuntimeError(f"train: trained checkpoint: the fast path's "
+                               f"classes differ from the module path's on "
+                               f"{key}")
+    log(f"train: trained checkpoint served: classes equal on "
+        f"{sorted(preds)}")
+    return launches
+
+
+def phase_train(label):
+    """Training at baseM's full width (module docs, 9); returns each
+    kernel's launches during the train steps and fused_bottleneck's per
+    forward of the trained checkpoint."""
+    torch.cuda.empty_cache()
+    parts = world.seeded_partitionings(np.random.default_rng(world.SEED + 5))
+    config = load_config(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "configs", "baseM.yml"))
+    config.train_params.log_every_steps = 1
+    config.train_params.checkpoint_every_steps = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = world.write_shard_world(tmp, parts, config, train_shards=4,
+                                       per_shard=384, n_val=64,
+                                       sizes=(256, 320))
+        log(f"train: shard world written in {time.perf_counter() - t0:.1f} "
+            f"s: 4 x 384 training and 64 validation records, heads "
+            f"{world.REAL_CLASS_COUNTS}")
+        trainer, launches = _fit(label, path)
+        ckpt = trainer.tp.checkpoint_dir
+        log(f"train: checkpoints {trainer.ckpt.all_steps()}, best "
+            f"{trainer.ckpt.best_step()}")
+        del trainer
+        _bench(label)
+        _overfit()
+        served = _serve_trained(ckpt, os.path.join(tmp, "val", "*.msgpack"))
+    return launches, served
+
+
 def main():
     t0 = time.perf_counter()
     label, ptxas = phase_device()
@@ -1030,17 +1310,21 @@ def main():
     tta = phase_tta(label, engine, fast, sd, ptxas, fast_ips)
     del fast
     isn = phase_isn(label)
+    train_launches, trained = phase_train(label)
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
             **{f"feature_tta_l{lv}": tta[lv][0] for lv, _ in FTTA_LEVELS},
-            "mirror_tta": tta["mirror"][0], "isn": isn["fused_bottleneck"]},
+            "mirror_tta": tta["mirror"][0], "isn": isn["fused_bottleneck"],
+            "train_steps": train_launches[0], "trained_checkpoint": trained},
         "fused_bottleneck_s2": {"device_tta_use_pallas_s2":
-                                launches["fused_bottleneck_s2"]},
+                                launches["fused_bottleneck_s2"],
+                                "train_steps": train_launches[1]},
         "conv_s8": {"int8": launches["conv_s8"],
                     **{f"int8_feature_tta_l{lv}": tta[f"int8 {lv}"]
                        for lv, _ in FTTA_LEVELS},
-                    "int8_isn": isn["conv_s8"]},
+                    "int8_isn": isn["conv_s8"],
+                    "train_steps": train_launches[2]},
     }
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

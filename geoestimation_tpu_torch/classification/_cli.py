@@ -12,11 +12,13 @@ import os
 
 import torch
 
+from ..eval.engine import MULTI_PROCESS_ITEM
+
 # flag -> (default, ROADMAP.md Queue 1 item that ports it)
 NOT_PORTED = {
-    "coordinator": (None, "Training"),
-    "num_processes": (None, "Training"),
-    "process_id": (None, "Training"),
+    "coordinator": (None, MULTI_PROCESS_ITEM),
+    "num_processes": (None, MULTI_PROCESS_ITEM),
+    "process_id": (None, MULTI_PROCESS_ITEM),
 }
 
 
@@ -59,6 +61,12 @@ def add_shared_args(p: argparse.ArgumentParser):
                         "imported reference checkpoints; forces --crops 10")
     add_feature_tta_args(p)
     add_calib_args(p)
+    add_coordinator_args(p)
+
+
+def add_coordinator_args(p: argparse.ArgumentParser):
+    """The multi-process flags of the JAX CLIs, parsed and then refused
+    (`check_ported`)."""
     not_ported = "not ported yet (see ROADMAP.md)"
     p.add_argument("--coordinator", default=None, help=not_ported)
     p.add_argument("--num_processes", type=int, default=None, help=not_ported)

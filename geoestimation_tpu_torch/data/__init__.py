@@ -1,1 +1,1 @@
-"""Eval image folders and meta CSVs."""
+"""Training shards and batches, and eval image folders."""

@@ -65,6 +65,9 @@ def default_scales_path(checkpoint: str) -> str:
     return os.path.join(d, "int8_scales.json")
 
 
+MULTI_PROCESS_ITEM = "Multi-process eval and training"
+
+
 def _not_ported(what, item):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1, {item!r})")
@@ -152,7 +155,7 @@ class InferenceEngine:
         scale multiplier; int8_recalibrate: ignore any cache.
         """
         if layout is not None:
-            _not_ported("sharded eval (layout)", "Training")
+            _not_ported("sharded eval (layout)", MULTI_PROCESS_ITEM)
         if tta_mode not in ("device", "host_exact", "feature"):
             raise ValueError(f"unknown tta_mode {tta_mode!r}")
         if tta_mode == "feature" and n_crops not in (5, 10):
@@ -517,7 +520,8 @@ class InferenceEngine:
         from ..data.image_folder import iter_image_folder
 
         if process_slice is not None:
-            _not_ported("multi-process eval (process_slice)", "Training")
+            _not_ported("multi-process eval (process_slice)",
+                        MULTI_PROCESS_ITEM)
         rows = []
         for batch in iter_image_folder(
             image_dir, batch_size=batch_size, num_workers=num_workers,
@@ -546,7 +550,8 @@ class InferenceEngine:
         from ..data.image_folder import iter_image_folder
 
         if process_slice is not None:
-            _not_ported("multi-process eval (process_slice)", "Training")
+            _not_ported("multi-process eval (process_slice)",
+                        MULTI_PROCESS_ITEM)
         gt = {
             str(r.IMG_ID): (float(r.LAT), float(r.LON))
             for r in meta.itertuples()

@@ -2,7 +2,7 @@
 
 from . import s2
 from .hierarchy import Hierarchy, ancestor_map
-from .partitioning import Partitioning, load_partitionings
+from .partitioning import Partitioning, assign_classes, load_partitionings
 
 __all__ = ["s2", "Hierarchy", "ancestor_map", "Partitioning",
-           "load_partitionings"]
+           "assign_classes", "load_partitionings"]

@@ -179,6 +179,17 @@ class Partitioning:
         return out
 
 
+def assign_classes(lat, lng, partitionings):
+    """Per-image class labels for each partitioning: each image's leaf S2
+    cell, looked up in every partitioning. (P, N) int32, -1 where the image
+    falls outside all cells of a partitioning."""
+    leaf = s2.latlng_to_cell_id(np.asarray(lat, np.float64),
+                                np.asarray(lng, np.float64))
+    return np.stack(
+        [p.contains_ancestor_classes(leaf) for p in partitionings], axis=0
+    )
+
+
 def shortname_from_filename(path):
     """Map a cells_<min>_<max>.csv filename to the reference's shortnames:
     5000->coarse, 2000->middle, 1000->fine (reference README.md:250-253);

@@ -2,7 +2,8 @@
 
 The port of `geoestimation_tpu/models/classifier.py`: the per-partitioning
 heads are one fused Linear over the shared features, computed in float32 and
-split by class counts afterwards.
+split by class counts afterwards; the training loss is the sum of the
+heads' cross-entropies (`multi_head_cross_entropy`).
 """
 
 from __future__ import annotations
@@ -38,11 +39,43 @@ class MultiPartitioningClassifier(nn.Module):
     """
 
     def __init__(self, n_classes: Sequence[int], arch: str = "resnet50",
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, remat=False):
         super().__init__()
         self.arch = arch
-        self.backbone = build_backbone(arch, dtype=dtype)
+        self.backbone = build_backbone(arch, dtype=dtype, remat=remat)
         self.heads = MultiHeadClassifier(n_classes)
 
-    def forward(self, images):
-        return self.heads(self.backbone(images))
+    def forward(self, images, train=False):
+        return self.heads(self.backbone(images, train=train))
+
+
+def multi_head_cross_entropy(logits_list, labels, label_smoothing=0.0,
+                             valid=None):
+    """Sum of per-head cross-entropies.
+
+    Args:
+      logits_list: list of (B, C_p) float32 logits.
+      labels: (P, B) or list of (B,) int labels per partitioning; -1 is
+        ignored.
+      valid: optional (P, B) or list of (B,) bool; invalid examples
+        contribute zero loss.
+
+    Each head's loss is the sum over its valid examples divided by
+    max(#valid, 1); with label smoothing the log-likelihood is
+    (1 - s) * log p[label] + s * mean(log p). Returns (total scalar,
+    per-head list).
+    """
+    per_head = []
+    for p, logits in enumerate(logits_list):
+        y = labels[p].long()
+        logp_all = F.log_softmax(logits, dim=-1)
+        logp = logp_all.gather(-1, y.clamp(min=0)[:, None])[:, 0]
+        if label_smoothing > 0.0:
+            logp = ((1.0 - label_smoothing) * logp
+                    + label_smoothing * logp_all.mean(dim=-1))
+        v = y >= 0
+        if valid is not None:
+            v = v & valid[p]
+        nll = torch.where(v, -logp, torch.zeros_like(logp))
+        per_head.append(nll.sum() / v.sum().clamp(min=1))
+    return sum(per_head), per_head

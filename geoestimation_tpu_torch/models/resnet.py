@@ -1,4 +1,4 @@
-"""ResNet backbones in PyTorch, for inference.
+"""ResNet backbones in PyTorch, for inference and training.
 
 The port of `geoestimation_tpu/models/resnet.py`. Children are named after
 torchvision (`conv1`, `bn1`, `layer1.0.conv1`, `layer1.0.downsample.0`, ...),
@@ -10,8 +10,15 @@ Public tensors are NHWC, as in the JAX package; inside, activations are NCHW
 views in channels-last memory, the same bytes. Parameters and BatchNorm
 statistics stay float32 and the compute dtype is a module attribute
 (bfloat16 or float32), with the JAX model's rounding: convolutions in the
-compute dtype; BatchNorm from running statistics in float32, cast back; the
-global pool summed in float32 and rounded to the compute dtype.
+compute dtype (float32 weights cast per forward); BatchNorm in float32, cast
+back; the global pool summed in float32 and rounded to the compute dtype.
+
+`forward(images, train=True)` is flax's train mode (`nn.BatchNorm`,
+momentum 0.9): each BatchNorm normalizes with its batch's float32 mean and
+biased "fast" variance E[x^2] - E[x]^2 (clipped at 0), and the running
+statistics become 0.9 * old + 0.1 * batch, once per forward, after it. With
+`remat`, each bottleneck block is recomputed on the backward pass
+(`torch.utils.checkpoint`, flax's `nn.remat(Bottleneck)`).
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # Canonical stage sizes -- the single source for anything that walks block
 # names (fast inference path, weights bridge).
@@ -31,6 +39,7 @@ STAGE_SIZES: dict = {
 
 FEATURE_DIM = 2048
 BN_EPSILON = 1e-5
+BN_MOMENTUM = 0.9
 
 
 def batch_norm(x, bn: nn.BatchNorm2d):
@@ -40,6 +49,30 @@ def batch_norm(x, bn: nn.BatchNorm2d):
     mul = torch.rsqrt(bn.running_var + bn.eps) * bn.weight
     y = (x.float() - bn.running_mean[:, None, None]) * mul[:, None, None]
     return (y + bn.bias[:, None, None]).to(x.dtype)
+
+
+def batch_norm_train(x, bn: nn.BatchNorm2d):
+    """Train-mode BatchNorm as flax computes it: statistics of x's batch in
+    float32, the variance E[x^2] - E[x]^2 clipped at 0 (biased), then
+    ((x - mean) * (rsqrt(var + eps) * scale)) + bias in float32, cast back to
+    x's dtype. Returns (y, mean, var); the running statistics are the
+    caller's to update (`update_running_stats`)."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0)
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    y = (xf - mean[:, None, None]) * mul[:, None, None]
+    return (y + bn.bias[:, None, None]).to(x.dtype), mean, var
+
+
+@torch.no_grad()
+def update_running_stats(bns, stats, momentum=BN_MOMENTUM):
+    """running = momentum * running + (1 - momentum) * batch, for each
+    BatchNorm of `bns` and its (mean, var) in the flat list `stats`."""
+    for bn, mean, var in zip(bns, stats[0::2], stats[1::2]):
+        bn.running_mean.copy_(momentum * bn.running_mean
+                              + (1 - momentum) * mean)
+        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * var)
 
 
 def conv(x, layer: nn.Conv2d):
@@ -69,6 +102,13 @@ class Bottleneck(nn.Module):
                 nn.Conv2d(inplanes, out, 1, stride=stride, bias=False),
                 nn.BatchNorm2d(out, eps=BN_EPSILON))
 
+    def norms(self):
+        """The block's BatchNorms in the order `forward_train` returns their
+        statistics."""
+        out = [self.bn1, self.bn2, self.bn3]
+        return out + ([self.downsample[1]] if self.downsample is not None
+                      else [])
+
     def forward(self, x):
         y = torch.relu(batch_norm(conv(x, self.conv1), self.bn1))
         y = torch.relu(batch_norm(conv(y, self.conv2), self.bn2))
@@ -78,13 +118,28 @@ class Bottleneck(nn.Module):
             res = batch_norm(conv(x, self.downsample[0]), self.downsample[1])
         return torch.relu(y + res)
 
+    def forward_train(self, x):
+        """Train mode: (y, mean, var, mean, var, ...), the batch statistics
+        of `norms()` in order."""
+        y, *s1 = batch_norm_train(conv(x, self.conv1), self.bn1)
+        y, *s2 = batch_norm_train(conv(torch.relu(y), self.conv2), self.bn2)
+        y, *s3 = batch_norm_train(conv(torch.relu(y), self.conv3), self.bn3)
+        stats = s1 + s2 + s3
+        res = x
+        if self.downsample is not None:
+            res, *sd = batch_norm_train(conv(x, self.downsample[0]),
+                                        self.downsample[1])
+            stats += sd
+        return (torch.relu(y + res), *stats)
+
 
 class ResNet(nn.Module):
     """ResNet feature extractor: NHWC images -> (B, 2048) float32 features."""
 
-    def __init__(self, stage_sizes, dtype=torch.bfloat16):
+    def __init__(self, stage_sizes, dtype=torch.bfloat16, remat=False):
         super().__init__()
         self.dtype = dtype
+        self.remat = remat
         self.conv1 = nn.Conv2d(3, 64, 7, stride=2, padding=3, bias=False)
         self.bn1 = nn.BatchNorm2d(64, eps=BN_EPSILON)
         inplanes = 64
@@ -98,18 +153,40 @@ class ResNet(nn.Module):
             setattr(self, f"layer{stage + 1}", nn.Sequential(*blocks))
         self.n_stages = len(stage_sizes)
 
-    def forward(self, images):
+    def blocks(self):
+        return [b for stage in range(self.n_stages)
+                for b in getattr(self, f"layer{stage + 1}")]
+
+    def forward(self, images, train=False):
         x = images.to(self.dtype).permute(0, 3, 1, 2)
-        x = torch.relu(batch_norm(conv(x, self.conv1), self.bn1))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)
-        for stage in range(self.n_stages):
-            x = getattr(self, f"layer{stage + 1}")(x)
+        if train:
+            x = self._trunk_train(x)
+        else:
+            x = torch.relu(batch_norm(conv(x, self.conv1), self.bn1))
+            x = F.max_pool2d(x, 3, stride=2, padding=1)
+            for stage in range(self.n_stages):
+                x = getattr(self, f"layer{stage + 1}")(x)
         # global average pool: float32 sum, rounded to the compute dtype
         feats = x.mean(dim=(2, 3), dtype=torch.float32)
         return feats.to(self.dtype).float()
 
+    def _trunk_train(self, x):
+        x, *stats = batch_norm_train(conv(x, self.conv1), self.bn1)
+        x = F.max_pool2d(torch.relu(x), 3, stride=2, padding=1)
+        bns = [self.bn1]
+        for block in self.blocks():
+            if self.remat:
+                x, *s = checkpoint(block.forward_train, x, use_reentrant=False)
+            else:
+                x, *s = block.forward_train(x)
+            stats += s
+            bns += block.norms()
+        # after the forward, so that a recomputed block updates nothing
+        update_running_stats(bns, stats)
+        return x
 
-def build_backbone(arch: str, dtype=torch.bfloat16) -> ResNet:
+
+def build_backbone(arch: str, dtype=torch.bfloat16, remat=False) -> ResNet:
     if arch not in STAGE_SIZES:
         raise ValueError(f"unknown arch {arch!r}; have {sorted(STAGE_SIZES)}")
-    return ResNet(STAGE_SIZES[arch], dtype=dtype)
+    return ResNet(STAGE_SIZES[arch], dtype=dtype, remat=remat)

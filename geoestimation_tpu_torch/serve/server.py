@@ -30,6 +30,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..classification._cli import (
+    MULTI_PROCESS_ITEM,
     add_calib_args,
     add_feature_tta_args,
     check_ported,
@@ -250,7 +251,7 @@ class GeoInferenceServer:
 
 
 # flag -> (default, ROADMAP.md Queue 1 item that ports it)
-NOT_PORTED = {"shard_batch": (False, "Training")}
+NOT_PORTED = {"shard_batch": (False, MULTI_PROCESS_ITEM)}
 
 
 def build_parser():

@@ -10,19 +10,29 @@ partitionings at those counts. Needs no data and no network. With
 
 `forward(apply, harrays)` is the engine's own device pipeline around any
 `apply`: eval_pipeline -> apply -> mean_tta_logits -> predict_all.
+
+`write_shard_world(root, ...)` writes what the training CLI needs, made from
+a seed: msgpack shards of JPEG records whose lat/lng lie in the partitionings'
+fine cells, a label CSV for each split, the partitioning CSVs and a config
+(Pillow makes the JPEGs).
 """
 
 from __future__ import annotations
+
+import copy
+import io
+import os
 
 import numpy as np
 import torch
 
 from ..convert import from_jax_variables
+from ..data import shards
 from ..eval.infer import mean_tta_logits, predict_all
-from ..geo import Partitioning, s2
+from ..geo import Partitioning, assign_classes, s2
 from ..ingest.pipeline import eval_pipeline
 from ..models.resnet import FEATURE_DIM, STAGE_SIZES
-from ..utils.config import Config
+from ..utils.config import Config, save_config
 
 SEED = 0
 ARCH = "resnet50"
@@ -166,3 +176,77 @@ def forward(apply, harrays, n_crops=10, crop=224, fold="prob_mean"):
         return predict_all(logits, harrays)
 
     return run
+
+
+def _jpeg(rng, image_mod, side):
+    """A smooth seeded (side x side') JPEG: a coarse random color grid,
+    upsampled, under pixel noise."""
+    w, h = side, int(rng.integers(side, side + 64))
+    grid = rng.integers(0, 256, (4, 4, 3), dtype=np.uint8)
+    img = np.asarray(image_mod.fromarray(grid).resize(
+        (w, h), image_mod.BILINEAR), np.int16)
+    img = np.clip(img + rng.integers(-12, 13, img.shape, dtype=np.int16),
+                  0, 255)
+    buf = io.BytesIO()
+    image_mod.fromarray(img.astype(np.uint8)).save(buf, format="JPEG",
+                                                   quality=90)
+    return buf.getvalue()
+
+
+def write_shard_world(root, partitionings, config=None, seed=SEED,
+                      train_shards=2, per_shard=256, n_val=64,
+                      sizes=(256, 320)):
+    """Writes a training world under `root` and returns its config path:
+    `train_shards` x `per_shard` training records and `n_val` validation
+    records (msgpack, `data/shards.py`), JPEGs with shorter sides drawn
+    from `sizes`, each at the center of a random fine cell of
+    `partitionings`; `{train,val}_labels.csv` (IMG_ID and one class column
+    per partitioning, from `assign_classes`); the partitionings as CSVs; and
+    `world.yml`: `config` (default `Config()`) with those files, the
+    checkpoint dir `root/ckpt` and `seed`."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    fine = partitionings[-1]
+    files = []
+    for p in partitionings:
+        files.append(os.path.join(root, "cells", f"{p.name}.csv"))
+        p.to_csv(files[-1])
+
+    def split(name, n_shards, n):
+        ids, lat, lng = [], [], []
+        for s in range(n_shards):
+            cells = rng.integers(0, len(fine), n)
+            recs = [{"id": f"{name}_{s}_{i}",
+                     "image": _jpeg(rng, Image, int(rng.integers(*sizes))),
+                     "lat": float(fine.lat[c]), "lng": float(fine.lng[c])}
+                    for i, c in enumerate(cells)]
+            shards.write_shard(recs, os.path.join(
+                root, name, f"shard_{s:05d}.msgpack"))
+            ids += [r["id"] for r in recs]
+            lat += [r["lat"] for r in recs]
+            lng += [r["lng"] for r in recs]
+        labels = assign_classes(lat, lng, partitionings)
+        if (labels < 0).any():
+            raise RuntimeError("a record lies outside the partitionings")
+        path = os.path.join(root, f"{name}_labels.csv")
+        with open(path, "w") as f:
+            f.write(",".join(["IMG_ID"] + [p.name for p in partitionings])
+                    + "\n")
+            for i, row in zip(ids, labels.T):
+                f.write(",".join([i] + [str(int(c)) for c in row]) + "\n")
+        return [os.path.join(root, name, "*.msgpack")], path
+
+    train, train_labels = split("train", train_shards, per_shard)
+    val, val_labels = split("val", 1, n_val)
+    config = copy.deepcopy(config or Config())
+    mp, tp = config.model_params, config.train_params
+    mp.partitionings.files = files
+    mp.partitionings.shortnames = [p.name for p in partitionings]
+    tp.train_shards, tp.val_shards = train, val
+    tp.train_labels, tp.val_labels = train_labels, val_labels
+    tp.checkpoint_dir = os.path.join(root, "ckpt")
+    tp.seed = seed
+    path = os.path.join(root, "world.yml")
+    save_config(config, path)
+    return path

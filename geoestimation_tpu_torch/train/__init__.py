@@ -1,1 +1,2 @@
-"""Model construction from a config (training itself: ROADMAP.md Queue 1)."""
+"""Training: model construction, the optimizer and schedules, the steps,
+checkpoints and the loop."""

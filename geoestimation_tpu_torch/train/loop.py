@@ -1,0 +1,325 @@
+"""Training loop: epochs, logging, validation, checkpointing.
+
+The port of `geoestimation_tpu/train/loop.py`, in one process on one
+device: the step on the device for each batch of the loader, validation at
+intervals (val_loss and the GCD accuracies of the f* rule), best-val-loss
+checkpoint retention, resume from the latest checkpoint, a checkpoint on
+SIGTERM, and an optional `torch.profiler` trace (`profile_dir`).
+Multi-process training and a mesh of more than one device are not ported
+yet (ROADMAP.md Queue 1, 'Multi-process eval and training').
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import signal
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..data.loader import ShardBatcher, load_label_csv
+from ..data.shards import count_records
+from ..eval.engine import (
+    MULTI_PROCESS_ITEM,
+    resolve_device,
+    resolve_partitioning_paths,
+)
+from ..eval.infer import HierarchyArrays, predict_hierarchical
+from ..eval.metrics import GcdAccumulator, gcd_threshold_counts
+from ..geo import Hierarchy, load_partitionings
+from ..utils.logging import MetricsLogger
+from .init import init_weights, model_from_config
+from .optim import build_optimizer
+from .step import (
+    TrainState,
+    eval_step,
+    eval_step_isn,
+    train_step,
+    train_step_isn,
+)
+
+
+class Trainer:
+    def __init__(self, config, search_dirs=(), log_fn=print, device="cuda"):
+        self.config = config
+        self.tp = tp = config.train_params
+        if tp.mesh_shape and math.prod(tp.mesh_shape) != 1:
+            raise NotImplementedError(
+                f"train_params.mesh_shape {list(tp.mesh_shape)}: a mesh of "
+                f"more than one device is not ported yet (ROADMAP.md Queue "
+                f"1, {MULTI_PROCESS_ITEM!r})")
+        if tp.data_feed not in ("lockstep", "strided"):
+            raise ValueError(
+                f"unknown train_params.data_feed {tp.data_feed!r}; "
+                "expected 'lockstep' or 'strided'")
+        self.log = log_fn
+        self.device = resolve_device(device)
+        paths = resolve_partitioning_paths(
+            config.model_params.partitionings.files, list(search_dirs))
+        self.partitionings = load_partitionings(
+            paths, names=list(config.model_params.partitionings.shortnames))
+        self.harrays = HierarchyArrays.from_hierarchy(
+            Hierarchy.build(self.partitionings), self.device)
+        self.n_classes = tuple(len(p) for p in self.partitionings)
+        # Without validation data every checkpoint is metric-less and
+        # best-val-loss retention would keep all of them forever; keep the
+        # latest N in that case.
+        self.ckpt = CheckpointManager(
+            tp.checkpoint_dir, max_to_keep=tp.keep_checkpoints,
+            best_metric="val_loss" if tp.val_shards else None)
+        self.metrics = MetricsLogger(tp.checkpoint_dir,
+                                     stdout=lambda s: None)
+        self.batch_wait_s = 0.0   # host time spent waiting for train batches
+
+    # -- state --------------------------------------------------------------
+
+    def initial_state(self, steps_per_epoch: int) -> TrainState:
+        model = init_weights(model_from_config(self.config, self.n_classes),
+                             self.tp.seed)
+        model = model.to(self.device, memory_format=torch.channels_last)
+        optimizer = build_optimizer(model.parameters(), self.tp.optimizer,
+                                    self.tp.lr_schedule, steps_per_epoch)
+        self.schedule = optimizer.schedule
+        return TrainState(model, optimizer)
+
+    def maybe_resume(self, state: TrainState) -> TrainState:
+        latest = self.ckpt.latest_step()
+        if latest is None:
+            return state
+        self.log(f"resuming from step {latest}")
+        restored = self.ckpt.restore(latest)
+        state.model.load_state_dict(restored["model"])
+        state.optimizer.load_state_dict(restored["optimizer"])
+        state.step = int(restored["step"])
+        return state
+
+    # -- data ---------------------------------------------------------------
+
+    def _batcher(self, patterns, labels_csv, shuffle, seed):
+        label_map = scene_map = None
+        if labels_csv:
+            label_map, scene_map = load_label_csv(
+                labels_csv,
+                self.config.model_params.partitionings.shortnames,
+                with_scene=True,
+            )
+        return ShardBatcher(
+            patterns,
+            batch_size=self.tp.batch_size,
+            partitionings=None if label_map else self.partitionings,
+            label_map=label_map,
+            scene_map=scene_map,
+            shuffle=shuffle,
+            seed=seed,
+            repeat=False,
+            num_workers=self.tp.num_workers,
+            # validation (shuffle=False) must not double-count tile-padded
+            # duplicates in val_loss / GCD accuracy
+            mask_padding=not shuffle,
+        )
+
+    def _feed(self, arr):
+        return torch.as_tensor(arr).to(self.device, non_blocking=True)
+
+    def _timed(self, batcher):
+        """The batches of `batcher`, adding the host's wait for each to
+        `batch_wait_s`."""
+        it = iter(batcher)
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            self.batch_wait_s += time.perf_counter() - t0
+            if batch is None:
+                return
+            yield batch
+
+    def _scene(self, batch):
+        scene = batch.scene if batch.scene is not None \
+            else np.full(batch.images.shape[0], -1, np.int32)
+        return self._feed(scene)
+
+    # -- validation ---------------------------------------------------------
+
+    def validate(self, state: TrainState) -> dict:
+        batcher = self._batcher(self.tp.val_shards, self.tp.val_labels,
+                                shuffle=False, seed=0)
+        isn = self.config.model_params.scene_gating
+        crop = self.tp.image_size
+        losses = []
+        scene_correct = scene_total = 0
+        gcd = GcdAccumulator()
+        for batch in batcher:
+            images, labels = self._feed(batch.images), self._feed(batch.labels)
+            if isn:
+                metrics, logits = eval_step_isn(state, images, labels,
+                                                self._scene(batch), crop)
+                scene_correct += int(metrics["scene_correct"])
+                scene_total += int(metrics["scene_total"])
+            else:
+                metrics, logits = eval_step(state, images, labels, crop)
+            losses.append(float(metrics["val_loss"]))
+            if batch.latlng is not None:
+                known = ~np.isnan(batch.latlng[:, 0])
+                if known.any():
+                    _, plat, plng = predict_hierarchical(list(logits),
+                                                         self.harrays)
+                    counts, total = gcd_threshold_counts(
+                        plat, plng, self._feed(batch.latlng[:, 0]),
+                        self._feed(batch.latlng[:, 1]),
+                        valid=self._feed(known))
+                    gcd.update(counts, total)
+        out = {"val_loss": float(np.mean(losses)) if losses else float("nan")}
+        if scene_total:
+            out["scene_acc"] = scene_correct / scene_total
+        if gcd.total:
+            out.update({f"gcd@{int(k)}km": v for k, v in gcd.result().items()})
+        return out
+
+    # -- main loop ----------------------------------------------------------
+
+    def _train_fn(self):
+        tp = self.tp
+        kw = dict(label_smoothing=tp.label_smoothing, crop=tp.image_size,
+                  crop_scale=tuple(tp.train_crop_scale)
+                  if tp.train_crop_scale else None)
+        if self.config.model_params.scene_gating:
+            return lambda state, batch: train_step_isn(
+                state, self._feed(batch.images), self._feed(batch.labels),
+                self._scene(batch), tp.seed,
+                scene_loss_weight=tp.scene_loss_weight, **kw)
+        return lambda state, batch: train_step(
+            state, self._feed(batch.images), self._feed(batch.labels),
+            tp.seed, **kw)
+
+    def fit(self, max_steps: Optional[int] = None, resume: bool = True):
+        tp = self.tp
+        steps_per_epoch = tp.steps_per_epoch
+        if steps_per_epoch is None:
+            n = count_records(tp.train_shards)
+            steps_per_epoch = max(1, n // tp.batch_size)
+            self.log(f"{n} training records -> {steps_per_epoch} steps/epoch")
+        total_steps = max_steps or steps_per_epoch * tp.epochs
+
+        state = self.initial_state(steps_per_epoch)
+        if resume:
+            state = self.maybe_resume(state)
+        step = state.step
+        train_fn = self._train_fn()
+
+        profiler = None
+        if tp.profile_dir:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.start()
+        t0 = time.time()
+        images_seen = 0
+
+        # Preemption safety: checkpoint on SIGTERM so a maintenance event or
+        # scheduler kill resumes cleanly.
+        self._interrupted = False
+
+        def _on_sigterm(signum, frame):
+            self._interrupted = True
+            self.log("SIGTERM received; checkpointing at next step")
+
+        old_handler = None
+        try:
+            old_handler = signal.signal(signal.SIGTERM, _on_sigterm)
+        except ValueError:
+            pass  # not the main thread (tests)
+        try:
+            while step < total_steps:
+                epoch_start_step = step
+                batcher = self._batcher(
+                    tp.train_shards, tp.train_labels, shuffle=True,
+                    seed=tp.seed + step,
+                )
+                for batch in self._timed(batcher):
+                    state, metrics = train_fn(state, batch)
+                    step = state.step
+                    images_seen += batch.images.shape[0]
+                    if step % tp.log_every_steps == 0 or step == total_steps:
+                        loss = float(metrics["loss"])
+                        dt = time.time() - t0
+                        ips = images_seen / dt if dt > 0 else 0
+                        lr = float(self.schedule(step))
+                        self.log(
+                            f"step {step}/{total_steps} loss {loss:.4f} "
+                            f"lr {lr:.5f} {ips:.1f} img/s"
+                        )
+                        self.metrics.log(step, {"loss": loss, "lr": lr,
+                                                "images_per_sec": ips},
+                                         prefix="train/")
+                    do_ckpt = (tp.checkpoint_every_steps and
+                               step % tp.checkpoint_every_steps == 0)
+                    do_val = (tp.val_every_steps and
+                              step % tp.val_every_steps == 0)
+                    if do_ckpt:
+                        # _checkpoint runs (and logs) validation itself, so
+                        # a coinciding val_every_steps boundary must not run
+                        # the full val set a second time
+                        self._checkpoint(state, step)
+                    elif do_val:
+                        self.log(f"val @ {step}: {self.validate(state)}")
+                    if self._interrupted:
+                        self._checkpoint(state, step, val_metrics={})
+                        self.log(f"checkpointed at step {step} after "
+                                 "SIGTERM; exiting")
+                        return state
+                    if step >= total_steps:
+                        break
+                else:
+                    if step == epoch_start_step:
+                        # zero batches produced: every record was dropped
+                        # (e.g. label CSV ids don't match the shards) --
+                        # fail loudly instead of spinning forever.
+                        raise RuntimeError(
+                            "training epoch produced no batches -- check "
+                            "that the label CSV IMG_IDs match the shard "
+                            "record ids and that shards decode"
+                        )
+                    # epoch boundary: validate + checkpoint
+                    val = self.validate(state) if tp.val_shards else {}
+                    if val:
+                        self.log(f"epoch end @ {step}: {val}")
+                    self._checkpoint(state, step, val_metrics=val)
+        finally:
+            if profiler is not None:
+                profiler.stop()
+                os.makedirs(tp.profile_dir, exist_ok=True)
+                profiler.export_chrome_trace(
+                    os.path.join(tp.profile_dir, "trace.json"))
+            if old_handler is not None:
+                try:
+                    signal.signal(signal.SIGTERM, old_handler)
+                except ValueError:
+                    pass
+        self._checkpoint(state, step)
+        return state
+
+    def _checkpoint(self, state, step, val_metrics=None):
+        if val_metrics is None:
+            val_metrics = self.validate(state) if self.tp.val_shards else {}
+            if val_metrics:
+                self.log(f"val @ {step}: {val_metrics}")
+        if val_metrics:
+            self.metrics.log(step, val_metrics, prefix="val/")
+        # metric-less saves (no validation ran) are exempt from best-N
+        # cleanup -- see CheckpointManager.save
+        metrics = (
+            {"val_loss": val_metrics["val_loss"]}
+            if "val_loss" in val_metrics else None
+        )
+        self.ckpt.save(
+            step,
+            {"model": state.model.state_dict(),
+             "optimizer": state.optimizer.state_dict(), "step": step},
+            metrics=metrics,
+            config=self.config,
+        )

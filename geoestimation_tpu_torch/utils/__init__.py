@@ -1,1 +1,1 @@
-"""Configuration (the hparams.yaml schema)."""
+"""Configuration (the hparams.yaml schema) and metrics logging."""

@@ -306,8 +306,10 @@ def test_module_runs_on_cuda_unless_asked_for_cpu(servers):
     (["--precision", "8", "--feature_tta"], "TTA variants"),
     (["--feature_tta"], "TTA variants"),
     (["--feature_tta_level", "2"], "TTA variants"),
-    (["--precision", "8", "--calib_dir", "x", "--shard_batch"], "Training"),
-    (["--shard_batch"], "Training"),
+    pytest.param(["--precision", "8", "--calib_dir", "x", "--shard_batch"],
+                 "Multi-process eval and training", id="flags3-Training"),
+    pytest.param(["--shard_batch"], "Multi-process eval and training",
+                 id="flags4-Training"),
 ])
 def test_main_refuses_flags_not_ported(tmp_path, flags, item, request,
                                       monkeypatch, capsys):
@@ -316,7 +318,7 @@ def test_main_refuses_flags_not_ported(tmp_path, flags, item, request,
     server does with them: --feature_tta at the default --crops 1 exits
     with its message (the port before loading the checkpoint, the JAX
     server after); --feature_tta_level alone starts a device-TTA server."""
-    if item == "Training":
+    if item == "Multi-process eval and training":
         with pytest.raises(SystemExit, match=f"not ported yet.*{item}"):
             port_server.main(["--checkpoint", str(tmp_path / "none"),
                               "--cpu"] + flags)
