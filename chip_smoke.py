@@ -1,6 +1,8 @@
 """Drives the PyTorch/CUDA port on one GPU and checks it end to end.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --planted-faults   # phase 10's training gates
+                                             # against planted faults
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -81,12 +83,42 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (6 fused_bottleneck launches a forward, logits within the fast-path
      gates of the module path, the same predicted classes) on 8 of the
      validation images;
- 10. one JSON line describing every kernel (with its launches per forward
+ 10. multi-process, two processes of the port's own CLIs on the card
+     (`--coordinator 127.0.0.1:<free port> --num_processes 2 --process_id
+     p`, each process `python3 chip_smoke.py --rank ...`, each group with
+     its own time limit): on a world of phase 3's weights, 64 seeded JPEGs
+     and a meta CSV, `classification.test --fast` in two processes against
+     one (the merged table's counts equal or within one image; each image
+     whose predictions differ printed with its distances),
+     `classification.inference --fast --pallas` (the part files hold one
+     process's rows and classes; 6 `fused_bottleneck` launches a forward in
+     each rank), `classification.test --precision 8` (each rank defaults
+     --calib_dir to the folder and derives the scales one process derives
+     from it; 53 `conv_s8` launches a forward in each rank); `train_base`
+     on phase 9's world (global batch 256 = 2 x 128, lockstep, 6 steps,
+     the first epoch, validated at its end)
+     after one process on the same world and seed: finite losses, equal on
+     both ranks, every step's within rtol 6e-5 of one process's, step 1's
+     batch statistics (from the running statistics) within 5e-3 of one
+     process's (the mean in units of the standard deviation, the variance
+     relative), the heads' update over the run within 8e-3 of one
+     process's (relative, in norm), no kernel launched by a train step
+     (`--planted-faults` instead runs a clean pair and pairs with the
+     gradient all-reduce, the global BatchNorm sums or their backward's
+     sum taken out of their ranks, and fails unless only the clean pair
+     holds these gates);
+     images/s of both, each rank's peak memory,
+     the device group's backend and the gradient all-reduce's ms a step;
+     `serve --shard_batch` over the card's local devices (every answer
+     `predict_batch`'s); the training pair on two cards with NCCL where
+     there are two, else the line {"multi_process": {"nccl": "not run: 1
+     card"}}. One JSON line {"multi_process": {...}} each;
+ 11. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
-(Pillow too, where it is installed, to make and decode JPEGs; phase 9
-needs it).
+(Pillow too, where it is installed, to make and decode JPEGs; phases 9 and
+10 need it).
 """
 
 from __future__ import annotations
@@ -96,6 +128,9 @@ import io
 import json
 import multiprocessing
 import os
+import shutil
+import socket
+import subprocess
 import sys
 import tempfile
 import threading
@@ -1263,33 +1298,623 @@ def _serve_trained(ckpt, val_pattern):
     return launches
 
 
-def phase_train(label):
-    """Training at baseM's full width (module docs, 9); returns each
-    kernel's launches during the train steps and fused_bottleneck's per
-    forward of the trained checkpoint."""
-    torch.cuda.empty_cache()
+def _shard_world(tmp):
+    """Phase 9's seeded shard world under `tmp`; its config's path."""
     parts = world.seeded_partitionings(np.random.default_rng(world.SEED + 5))
     config = load_config(os.path.join(os.path.dirname(
         os.path.abspath(__file__)), "configs", "baseM.yml"))
     config.train_params.log_every_steps = 1
     config.train_params.checkpoint_every_steps = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        path = world.write_shard_world(tmp, parts, config, train_shards=4,
-                                       per_shard=384, n_val=64,
-                                       sizes=(256, 320))
-        log(f"train: shard world written in {time.perf_counter() - t0:.1f} "
-            f"s: 4 x 384 training and 64 validation records, heads "
-            f"{world.REAL_CLASS_COUNTS}")
-        trainer, launches = _fit(label, path)
-        ckpt = trainer.tp.checkpoint_dir
-        log(f"train: checkpoints {trainer.ckpt.all_steps()}, best "
-            f"{trainer.ckpt.best_step()}")
-        del trainer
-        _bench(label)
-        _overfit()
-        served = _serve_trained(ckpt, os.path.join(tmp, "val", "*.msgpack"))
-    return launches, served
+    t0 = time.perf_counter()
+    path = world.write_shard_world(tmp, parts, config, train_shards=4,
+                                   per_shard=384, n_val=64,
+                                   sizes=(256, 320))
+    log(f"train: shard world written in {time.perf_counter() - t0:.1f} "
+        f"s: 4 x 384 training and 64 validation records, heads "
+        f"{world.REAL_CLASS_COUNTS}")
+    return path
+
+
+def phase_train(label, tmp):
+    """Training at baseM's full width (module docs, 9) on a shard world
+    written under `tmp`; returns each kernel's launches during the train
+    steps, fused_bottleneck's per forward of the trained checkpoint, and
+    the world's config path."""
+    torch.cuda.empty_cache()
+    path = _shard_world(tmp)
+    trainer, launches = _fit(label, path)
+    ckpt = trainer.tp.checkpoint_dir
+    log(f"train: checkpoints {trainer.ckpt.all_steps()}, best "
+        f"{trainer.ckpt.best_step()}")
+    del trainer
+    _bench(label)
+    _overfit()
+    served = _serve_trained(ckpt, os.path.join(tmp, "val", "*.msgpack"))
+    return launches, served, path
+
+
+# -- phase 10 ------------------------------------------------------------------
+
+MP_IMAGES, MP_BATCH = 64, 32     # the eval world: 32 images a rank
+MP_TRAIN_STEPS = 6
+MP_TIMEOUT_S = 300               # each group of ranks
+# The two-process train gates against one process (bf16 on cuDNN, 128 rows
+# a rank against 256): every step's loss (relative); the batch statistics
+# of step 1 recovered from the running statistics, in units of each
+# channel's standard deviation (mean) and variance (variance), worst
+# channel; the heads' update over the run (the norm of the difference over
+# the norm of one process's update; the trunk's groups and single
+# parameters are printed, not gated: a clean pair reads 0.04 on the conv
+# weights and 0.2 on a BatchNorm bias). Set from the readings of a clean
+# pair and of pairs with a planted fault (`--planted-faults`, PERF.md).
+MP_LOSS_RTOL, MP_BN_LIMIT, MP_UPDATE_RTOL = 6e-5, 5e-3, 8e-3
+CLI = "geoestimation_tpu_torch.classification."
+
+
+def _no_grad_allreduce(multihost):
+    multihost.all_reduce_grads = lambda params: None
+
+
+def _local_bn_statistics(multihost):
+    multihost.sum_over_ranks = lambda t: t
+
+
+def _bn_sums_without_gradient_sum(multihost):
+    total = multihost.device_sum
+    multihost.sum_over_ranks = lambda t: t + (total(t) - t).detach()
+
+
+# what `--planted-faults` breaks in a training pair's rank processes: the
+# gradient all-reduce; the BatchNorm sums over the ranks; their backward
+FAULTS = {"no_grad_allreduce": _no_grad_allreduce,
+          "local_bn_statistics": _local_bn_statistics,
+          "bn_sums_without_gradient_sum": _bn_sums_without_gradient_sum}
+
+
+def rank_main(report_path, module, argv, fault=None):
+    """`python3 chip_smoke.py --rank REPORT [--fault NAME] MODULE ARGS...`:
+    a process of phase 10. Runs the port CLI MODULE's main(ARGS) here and
+    writes to REPORT what the phase reads: each forward's kernel launches,
+    each image's predictions, the int8 calibration's identity, each train
+    step's loss, wall, kernel launches and gradient all-reduce ms, the
+    device group's backend and the peak memory. Rank 0 of a training run
+    also saves step 1's batch statistics (recovered from the running
+    statistics) to REPORT.bn.pt and each parameter's update over the run
+    to REPORT.update.pt. `--fault` plants one of FAULTS first."""
+    import hashlib
+    import importlib
+
+    from geoestimation_tpu_torch.data import image_folder
+    from geoestimation_tpu_torch.parallel import multihost
+    from geoestimation_tpu_torch.train import loop
+
+    report = {"forwards": [], "images": {}, "steps": [], "backend": None}
+    current, saved = {}, {}
+    if fault is not None:
+        FAULTS[fault](multihost)
+
+    def running(state):
+        return {k: v.detach().cpu().clone()
+                for k, v in state.model.state_dict().items()
+                if k.endswith(("running_mean", "running_var"))}
+
+    def params(state):
+        return {k: v.detach().float().cpu()
+                for k, v in state.model.named_parameters()}
+
+    def backend():
+        rt = multihost.runtime()
+        report["backend"] = rt.backend if rt is not None else None
+
+    def wrap(owner, name, make):
+        setattr(owner, name, make(getattr(owner, name)))
+
+    def folder(orig):
+        def iterate(*a, **k):
+            for batch in orig(*a, **k):
+                current["batch"] = batch
+                yield batch
+        return iterate
+
+    def predict(orig):
+        def predict_batch(self, images_u8):
+            batch = current.get("batch")
+            preds = orig(self, images_u8)
+            if batch is not None and batch.images is images_u8:
+                for j, (img, ok) in enumerate(zip(batch.ids, batch.valid)):
+                    if ok:
+                        report["images"][img] = {
+                            k: [int(c[j]), float(la[j]), float(ln[j])]
+                            for k, (c, la, ln) in preds.items()}
+            return preds
+        return predict_batch
+
+    def forward(orig):
+        def counted(self, *a, **k):
+            backend()
+            before = _all_launches()
+            out = orig(self, *a, **k)
+            report["forwards"].append(
+                [x - y for x, y in zip(_all_launches(), before)])
+            return out
+        return counted
+
+    def build_int8(orig):
+        def recorded(self, images_u8):
+            orig(self, images_u8)
+            report["int8"] = {
+                "calib_dir": self._calib_dir, "weights_hash": self._qhash,
+                "source": self.int8_calib_source,
+                "stat": self.int8_calib_stat,
+                "scales_sha256": hashlib.sha256(json.dumps(
+                    {k: float(v) for k, v in self.int8_scales.items()},
+                    sort_keys=True).encode()).hexdigest()}
+        return recorded
+
+    def train_step(orig):
+        def timed(state, *a, **k):
+            backend()
+            rank0 = multihost.process_index() == 0
+            if rank0 and state.step == 0:
+                saved["init"] = {k: v.clone()
+                                 for k, v in params(state).items()}
+                saved["running"] = running(state)
+            torch.cuda.synchronize()
+            t0, before = time.perf_counter(), _all_launches()
+            state, metrics = orig(state, *a, **k)
+            loss = float(metrics["loss"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            report["steps"].append({
+                "loss": loss, "ms": 1e3 * (t1 - t0), "end": t1,
+                "launches": [x - y for x, y in zip(_all_launches(), before)],
+                "allreduce_ms": None})
+            if rank0 and state.step == 1:
+                m = resnet.BN_MOMENTUM
+                torch.save({k: (v - m * saved["running"][k]) / (1 - m)
+                            for k, v in running(state).items()},
+                           report_path + ".bn.pt")
+            saved["state"] = state
+            return state, metrics
+        return timed
+
+    def all_reduce(orig):
+        def timed(params):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            orig(params)
+            torch.cuda.synchronize()
+            report.setdefault("allreduce_ms", []).append(
+                1e3 * (time.perf_counter() - t0))
+        return timed
+
+    wrap(image_folder, "iter_image_folder", folder)
+    wrap(InferenceEngine, "predict_batch", predict)
+    wrap(InferenceEngine, "_forward", forward)
+    wrap(InferenceEngine, "_build_int8", build_int8)
+    wrap(loop, "train_step", train_step)
+    wrap(multihost, "all_reduce_grads", all_reduce)
+    torch.cuda.reset_peak_memory_stats()
+    importlib.import_module(module).main(argv)
+    report["peak_mem_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    if "init" in saved:
+        torch.save({k: v - saved["init"][k]
+                    for k, v in params(saved["state"]).items()},
+                   report_path + ".update.pt")
+    with open(report_path, "w") as f:
+        json.dump(report, f)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class _Ranks:
+    """Groups of `rank_main` processes; `close` kills what still runs."""
+
+    def __init__(self, tmp):
+        self.tmp, self.procs = tmp, []
+
+    def start(self, name, cli, args, n=2, fault=None):
+        """n processes of the port's CLI `cli` (with the coordinator flags
+        of their ranks when n > 1), each with FAULTS[fault] planted if
+        given."""
+        coord = f"127.0.0.1:{_free_port()}"
+        group = []
+        for p in range(n):
+            report = os.path.join(self.tmp, f"{name}.rank{p}.json")
+            cmd = [sys.executable, os.path.abspath(__file__), "--rank",
+                   report, *(["--fault", fault] if fault else []),
+                   CLI + cli, *args]
+            if n > 1:
+                cmd += ["--coordinator", coord, "--num_processes", str(n),
+                        "--process_id", str(p)]
+            group.append((subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), report))
+        self.procs += [proc for proc, _ in group]
+        return name, group
+
+    def wait(self, started, timeout=MP_TIMEOUT_S):
+        """Each rank's report and output; fails if a rank failed or passed
+        `timeout` s (and then kills the group)."""
+        name, group = started
+        deadline = time.perf_counter() + timeout
+        outs = []
+        for proc, _ in group:
+            try:
+                outs.append(proc.communicate(timeout=max(
+                    1.0, deadline - time.perf_counter()))[0])
+            except subprocess.TimeoutExpired:
+                self.close()
+                raise RuntimeError(f"multi-process {name}: a rank passed "
+                                   f"the {timeout} s limit")
+        for p, ((proc, _), out) in enumerate(zip(group, outs)):
+            if proc.returncode != 0:
+                raise RuntimeError(f"multi-process {name}: rank {p} exited "
+                                   f"{proc.returncode}:\n{out[-3000:]}")
+        reports = []
+        for _, path in group:
+            with open(path) as f:
+                reports.append(json.load(f))
+        return reports, outs
+
+    def close(self):
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _gcd_km(lat1, lng1, lat2, lng2):
+    p1, p2 = np.radians(lat1), np.radians(lat2)
+    h = (np.sin((p2 - p1) / 2) ** 2 + np.cos(p1) * np.cos(p2)
+         * np.sin(np.radians(lng2 - lng1) / 2) ** 2)
+    return 2 * 6371.0088 * np.arcsin(np.sqrt(np.clip(h, 0, 1)))
+
+
+def _mp_print(what, line):
+    print(json.dumps({"multi_process": {what: line}}), flush=True)
+
+
+def _eval_world(tmp, config, sd, parts):
+    """A port checkpoint of the world, MP_IMAGES seeded JPEGs and their meta
+    CSV (each at a random fine cell's center); returns their paths and the
+    truth."""
+    import copy
+
+    from geoestimation_tpu_torch.checkpoint import save_checkpoint
+
+    config = copy.deepcopy(config)
+    files = []
+    for p in parts:
+        files.append(os.path.join(tmp, "cells", f"{p.name}.csv"))
+        p.to_csv(files[-1])
+    config.model_params.partitionings.files = files
+    config.model_params.partitionings.shortnames = [p.name for p in parts]
+    ckpt = os.path.join(tmp, "mp_ckpt")
+    save_checkpoint(ckpt, sd, config)
+    images = os.path.join(tmp, "mp_images")
+    os.makedirs(images)
+    rng = np.random.default_rng(world.SEED + 7)
+    image_mod, fine, truth = _pillow(), parts[-1], {}
+    with open(os.path.join(tmp, "mp_meta.csv"), "w") as f:
+        f.write("IMG_ID,LAT,LON\n")
+        for i in range(MP_IMAGES):
+            name = f"img_{i:03d}.jpg"
+            side = int(rng.integers(256, 400))
+            with open(os.path.join(images, name), "wb") as g:
+                g.write(_jpeg(image_mod, rng.integers(
+                    0, 256, (side, int(rng.integers(256, 400)), 3),
+                    np.uint8)))
+            c = int(rng.integers(len(fine)))
+            truth[name] = (float(fine.lat[c]), float(fine.lng[c]))
+            f.write(f"{name},{truth[name][0]},{truth[name][1]}\n")
+    return ckpt, images, os.path.join(tmp, "mp_meta.csv"), truth
+
+
+def _table_gate(name, merged, single, pair_reports, single_report, truth):
+    """The merged table against one process's: each count (accuracy x
+    images) equal or within one image; prints each image whose predictions
+    differ between the runs, with its distances to the truth."""
+    per_pair = {}
+    for r in pair_reports:
+        per_pair.update(r["images"])
+    moved = []
+    for img, preds in sorted(single_report["images"].items()):
+        for key, (_, lat, lng) in preds.items():
+            got = per_pair[img][key]
+            if (got[1], got[2]) != (lat, lng):
+                t = truth[img]
+                moved.append({"image": img, "key": key,
+                              "single_km": float(_gcd_km(t[0], t[1], lat,
+                                                         lng)),
+                              "two_process_km": float(_gcd_km(
+                                  t[0], t[1], got[1], got[2]))})
+    worst, cells = 0, 0
+    for data, table in single.items():
+        for key, accs in table.items():
+            if key.startswith("_"):
+                continue
+            for th, acc in accs.items():
+                diff = abs(round(merged[data][key][th] * MP_IMAGES)
+                           - round(acc * MP_IMAGES))
+                worst, cells = max(worst, diff), cells + 1
+    if set(per_pair) != set(single_report["images"]) or worst > 1:
+        raise RuntimeError(f"multi-process {name}: tables differ by up to "
+                           f"{worst} images ({len(per_pair)} images scored); "
+                           f"moved {moved}")
+    return {"table_cells": cells, "worst_count_diff_images": worst,
+            "moved_images": moved}
+
+
+def _launch_gate(name, reports, kernel, want):
+    """Every forward of every rank launched `kernel` `want` times and the
+    other kernels not at all; returns the launches per forward per rank."""
+    k = {"fused_bottleneck": 0, "fused_bottleneck_s2": 1, "conv_s8": 2}[
+        kernel]
+    per_rank = []
+    for p, r in enumerate(reports):
+        fwd = r["forwards"]
+        if not fwd or any(f[k] != want or sum(f) != want for f in fwd):
+            raise RuntimeError(f"multi-process {name}: rank {p} launches per "
+                               f"forward {fwd}, want {want} of {kernel}")
+        per_rank.append(fwd[0][k])
+    return per_rank
+
+
+def _mp_eval(label, ranks, tmp, config, sd, parts):
+    """Two-process test and inference CLIs (bf16) and int8 test CLI against
+    one process each."""
+    import pandas as pd
+
+    ckpt, images, meta, truth = _eval_world(tmp, config, sd, parts)
+    common = ["--checkpoint", ckpt, "--batch_size", str(MP_BATCH)]
+    test = common + ["--image_dirs", images, "--meta_files", meta]
+    int8 = ["--precision", "8", "--recalibrate"]
+    out = {k: os.path.join(tmp, f"mp_{k}") for k in
+           ("table", "table1", "int8", "int8_1", "preds", "preds1")}
+    t0 = time.perf_counter()
+    started = [
+        ranks.start("test", "test", test + ["--fast", "--json",
+                                             out["table"]]),
+        ranks.start("test1", "test", test + ["--fast", "--json",
+                                              out["table1"]], n=1),
+        ranks.start("inference", "inference", common + [
+            "--image_dir", images, "--fast", "--pallas", "--output",
+            out["preds"]]),
+        ranks.start("inference1", "inference", common + [
+            "--image_dir", images, "--fast", "--pallas", "--output",
+            out["preds1"]], n=1),
+        ranks.start("int8", "test", test + int8 + ["--json", out["int8"]]),
+        ranks.start("int8_1", "test", test + int8 + [
+            "--calib_dir", images, "--json", out["int8_1"]], n=1),
+    ]
+    (tst, tst1, inf, inf1, i8, i81) = [
+        ranks.wait(s)[0] for s in started]
+    wall = time.perf_counter() - t0
+    with open(out["table"]) as f:
+        merged = json.load(f)
+    with open(out["table1"]) as f:
+        single = json.load(f)
+    table = _table_gate("bf16 test", merged, single, tst, tst1[0], truth)
+    # inference: the part files hold the single CSV's rows and classes
+    parts_df = pd.concat([pd.read_csv(f"{out['preds']}.part-{p}-of-2")
+                          for p in range(2)])
+    key = ["img_id", "p_key"]
+    got = parts_df.sort_values(key).reset_index(drop=True)
+    want = pd.read_csv(out["preds1"]).sort_values(key).reset_index(drop=True)
+    if not (got[key].equals(want[key])
+            and got.pred_class.equals(want.pred_class)):
+        raise RuntimeError("multi-process inference: the part files' rows "
+                           "or classes differ from one process's")
+    launches = _launch_gate("inference", inf, "fused_bottleneck",
+                            WANT_DEFAULT[0])
+    # int8: both ranks defaulted --calib_dir and derived the same scales
+    ident = [r["int8"] for r in i8]
+    if not (ident[0] == ident[1] and ident[0]["calib_dir"] == images
+            and ident[0]["source"] == "calib_dir"
+            and i81[0]["int8"]["scales_sha256"] == ident[0]["scales_sha256"]):
+        raise RuntimeError(f"multi-process int8: calibrations {ident} and "
+                           f"one process's {i81[0]['int8']}")
+    with open(out["int8"]) as f:
+        merged8 = json.load(f)
+    with open(out["int8_1"]) as f:
+        single8 = json.load(f)
+    table8 = _table_gate("int8 test", merged8, single8, i8, i81[0], truth)
+    launches8 = _launch_gate("int8", i8, "conv_s8", INT8_LAUNCHES)
+    _mp_print("eval", {
+        "what": "classification.test --fast (bf16, cuDNN route) in two "
+                "processes on one card against one process, "
+                f"{MP_IMAGES} images x 10 crops, batch {MP_BATCH}",
+        **table, "inference_parts_equal_single": True,
+        "inference_fused_bottleneck_per_forward_by_rank": launches,
+        "forwards_by_rank": [len(r["forwards"]) for r in inf],
+        "backend": tst[0]["backend"],
+        "peak_mem_GiB_by_rank": [r["peak_mem_GiB"] for r in inf],
+        "six_groups_wall_s": wall, "card": label})
+    _mp_print("int8", {
+        "what": "classification.test --precision 8 in two processes",
+        "calib_dir_by_rank": [i["calib_dir"] for i in ident],
+        "weights_hash_by_rank": [i["weights_hash"] for i in ident],
+        "scales_sha256_by_rank": [i["scales_sha256"] for i in ident],
+        "stat": ident[0]["stat"], **table8,
+        "conv_s8_per_forward_by_rank": launches8, "card": label})
+    return launches, launches8
+
+
+def _train_figures(reports, batch):
+    """Images/s from rank 0's step ends past step 1 (the loader's wait
+    included) and from its steps alone."""
+    steps = reports[0]["steps"]
+    gaps = np.diff([s["end"] for s in steps])
+    step_ms = [s["ms"] for s in steps[1:]]
+    return {"images_per_s": batch / float(np.mean(gaps)),
+            "images_per_s_steps_only": 1e3 * batch / float(np.mean(step_ms)),
+            "ms_per_step": float(np.mean(step_ms))}
+
+
+def _train_run(ranks, tmp, world_yml, name, n=2, fault=None):
+    """train_base for MP_TRAIN_STEPS steps from the seed in n processes;
+    each rank's report."""
+    ckpt = os.path.join(tmp, f"ckpt_{name}")
+    args = ["--config", world_yml, "--max_steps", str(MP_TRAIN_STEPS),
+            "--no_resume", "--checkpoint_dir", ckpt]
+    reports, _ = ranks.wait(ranks.start(name, "train_base", args, n=n,
+                                        fault=fault))
+    shutil.rmtree(ckpt)
+    return reports
+
+
+def _bn_batch_error(got, want):
+    """Worst over every BatchNorm channel of step 1's batch statistics:
+    the mean's difference in units of the channel's standard deviation,
+    the variance's relative difference."""
+    worst = 0.0
+    for k, w in want.items():
+        if k.endswith("running_mean"):
+            var = want[k[:-4] + "var"] + resnet.BN_EPSILON
+            err = (got[k] - w).abs() / var.sqrt()
+        else:
+            err = (got[k] - w).abs() / (w + resnet.BN_EPSILON)
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def _train_gate(name, pair, single, tmp):
+    """The pair's rank reports against one process's: raises on finite
+    losses, equal on both ranks, and no kernel launched; returns the
+    readings of the three numeric gates and whether all held."""
+    losses = [[s["loss"] for s in r["steps"]] for r in pair + single]
+    launches = [[s["launches"] for s in r["steps"]] for r in pair + single]
+    if (len(losses[0]) != MP_TRAIN_STEPS or losses[0] != losses[1]
+            or not np.isfinite(losses).all() or np.any(launches)):
+        raise RuntimeError(f"multi-process {name}: losses {losses}, "
+                           f"launches {launches}")
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses[0], losses[2])]
+
+    def load(run, what):
+        return torch.load(os.path.join(tmp, f"{run}.rank0.json.{what}.pt"))
+
+    bn_err = _bn_batch_error(load(name, "bn"), load(f"{name}1", "bn"))
+    got, want = load(name, "update"), load(f"{name}1", "update")
+    update_err = {k: float((got[k] - w).norm() / w.norm().clamp_min(1e-30))
+                  for k, w in want.items()}
+    groups = {}
+    for k, w in want.items():
+        g = ("heads" if k.startswith("heads.") else "conv" if w.dim() == 4
+             else "bn")
+        groups.setdefault(g, []).append(k)
+    by_group = {g: float(torch.cat([(got[k] - want[k]).flatten()
+                                    for k in ks]).norm()
+                         / torch.cat([want[k].flatten() for k in ks]).norm())
+                for g, ks in groups.items()}
+    worst = max(update_err, key=update_err.get)
+    held = (max(loss_err) <= MP_LOSS_RTOL and bn_err <= MP_BN_LIMIT
+            and by_group["heads"] <= MP_UPDATE_RTOL)
+    return {"losses_two_process": losses[0], "losses_one_process": losses[2],
+            "loss_rel_err_by_step": loss_err, "loss_rtol": MP_LOSS_RTOL,
+            "bn_step1_batch_stats_worst": bn_err, "bn_limit": MP_BN_LIMIT,
+            "update_rel_err_by_group": by_group,
+            "update_rtol_heads": MP_UPDATE_RTOL,
+            "update_rel_err_median": float(np.median(list(
+                update_err.values()))),
+            "update_rel_err_worst": update_err[worst],
+            "update_rel_err_worst_parameter": worst, "parameters": len(want),
+            "gates_held": held}
+
+
+def _mp_train(label, ranks, tmp, world_yml, name="train"):
+    """train_base in one process, then in two on the same world and seed."""
+    single = _train_run(ranks, tmp, world_yml, f"{name}1", n=1)
+    pair = _train_run(ranks, tmp, world_yml, name)
+    gate = _train_gate(name, pair, single, tmp)
+    launches = [[s["launches"] for s in r["steps"]] for r in pair]
+    line = {
+        "what": f"train_base baseM ResNet50 bf16, global batch "
+                f"{TRAIN_BATCH} = 2 x {TRAIN_BATCH // 2} (lockstep) against "
+                f"one process, {MP_TRAIN_STEPS} steps", **gate,
+        "two_process": _train_figures(pair, TRAIN_BATCH),
+        "one_process": _train_figures(single, TRAIN_BATCH),
+        "peak_mem_GiB_by_rank": [r["peak_mem_GiB"] for r in pair],
+        "peak_mem_GiB_one_process": single[0]["peak_mem_GiB"],
+        "backend": pair[0]["backend"],
+        "grad_allreduce_ms_rank0": pair[0]["allreduce_ms"],
+        "kernel_launches_train_steps": [int(x) for x in np.sum(
+            launches, axis=(0, 1))], "card": label}
+    _mp_print(name, line)
+    if name == "train_nccl" and line["backend"] != "nccl":
+        raise RuntimeError(f"multi-process {name}: device group "
+                           f"{line['backend']}, not nccl, on distinct cards")
+    if not gate["gates_held"]:
+        raise RuntimeError(f"multi-process {name}: the pair is not one "
+                           f"process's: {json.dumps(gate)}")
+    return line
+
+
+def _mp_server(label, ckpt):
+    """`serve --shard_batch` over the card's local devices: every answer
+    equals `predict_batch` on the batch the server ran (the image padded
+    with itself to the batch)."""
+    from geoestimation_tpu_torch.serve import server as port_server
+
+    seen = {}
+    rng = np.random.default_rng(world.SEED + 8)
+    blobs = [_jpeg(_pillow(), rng.integers(0, 256, (300, 280, 3), np.uint8))
+             for _ in range(8)]
+
+    def serve_once(self):
+        self.start_background()
+        try:
+            seen["answers"] = [_post(self.port, b) for b in blobs]
+            seen["images"] = [self._decode(b)[0][0] for b in blobs]
+            seen["engine"] = self.engine
+        finally:
+            self.close()
+
+    orig = GeoInferenceServer.serve_forever
+    GeoInferenceServer.serve_forever = serve_once
+    try:
+        port_server.main(["--checkpoint", ckpt, "--host", "127.0.0.1",
+                          "--port", "0", "--batch_size", str(SERVER_BATCH),
+                          "--crops", "10", "--fast", "--shard_batch"])
+    finally:
+        GeoInferenceServer.serve_forever = orig
+    engine = seen["engine"]
+    for k, (answer, image) in enumerate(zip(seen["answers"],
+                                            seen["images"])):
+        ref = engine.predict_batch(np.stack([image] * SERVER_BATCH))
+        want = {key: {"class": int(c[0]), "lat": float(la[0]),
+                      "lng": float(ln[0])} for key, (c, la, ln) in ref.items()}
+        if answer != want:
+            raise RuntimeError(f"--shard_batch answer {k} differs from "
+                               f"predict_batch: {answer} != {want}")
+    _mp_print("server_shard_batch", {
+        "requests": len(blobs), "local_devices": engine.layout.n_data,
+        "answers_equal_predict_batch": True, "card": label})
+
+
+def phase_multi(label, tmp, world_yml, config, sd, parts):
+    """Multi-process (module docs, 10): returns the launches per forward of
+    each rank on the bf16 and int8 eval paths, and each kernel's launches
+    in the train steps of both runs."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = _Ranks(tmp)
+    try:
+        eval_launches = _mp_eval(label, ranks, tmp, config, sd, parts)
+        train = _mp_train(label, ranks, tmp, world_yml)
+        _mp_server(label, os.path.join(tmp, "mp_ckpt"))
+        if torch.cuda.device_count() >= 2:
+            _mp_train(label, ranks, tmp, world_yml, name="train_nccl")
+        else:
+            _mp_print("nccl", "not run: 1 card")
+    finally:
+        ranks.close()
+    log(f"multi-process: phase 10 in {time.perf_counter() - t0:.1f} s")
+    return (*eval_launches, train["kernel_launches_train_steps"])
 
 
 def main():
@@ -1310,21 +1935,31 @@ def main():
     tta = phase_tta(label, engine, fast, sd, ptxas, fast_ips)
     del fast
     isn = phase_isn(label)
-    train_launches, trained = phase_train(label)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, trained, world_yml = phase_train(label, tmp)
+        mp, mp8, mp_train = phase_multi(label, tmp, world_yml, config, sd,
+                                        parts)
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
             **{f"feature_tta_l{lv}": tta[lv][0] for lv, _ in FTTA_LEVELS},
             "mirror_tta": tta["mirror"][0], "isn": isn["fused_bottleneck"],
-            "train_steps": train_launches[0], "trained_checkpoint": trained},
+            "train_steps": train_launches[0], "trained_checkpoint": trained,
+            **{f"two_process_inference_rank{p}": n
+               for p, n in enumerate(mp)},
+            "two_process_train_steps": mp_train[0]},
         "fused_bottleneck_s2": {"device_tta_use_pallas_s2":
                                 launches["fused_bottleneck_s2"],
-                                "train_steps": train_launches[1]},
+                                "train_steps": train_launches[1],
+                                "two_process_train_steps": mp_train[1]},
         "conv_s8": {"int8": launches["conv_s8"],
                     **{f"int8_feature_tta_l{lv}": tta[f"int8 {lv}"]
                        for lv, _ in FTTA_LEVELS},
                     "int8_isn": isn["conv_s8"],
-                    "train_steps": train_launches[2]},
+                    "train_steps": train_launches[2],
+                    **{f"two_process_int8_rank{p}": n
+                       for p, n in enumerate(mp8)},
+                    "two_process_train_steps": mp_train[2]},
     }
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
@@ -1337,5 +1972,47 @@ def main():
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def planted_faults():
+    """`python3 chip_smoke.py --planted-faults`: phase 10's training gates
+    against the faults they are there to catch. On phase 9's world, one
+    process, then a clean pair and a pair with each of FAULTS planted in
+    its ranks; one line of readings each. Fails unless the clean pair holds
+    every gate and each faulty pair fails one."""
+    require_cuda("chip_smoke")
+    label = card_label()
+    log(label)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        world_yml = _shard_world(tmp)
+        ranks = _Ranks(tmp)
+        try:
+            single = _train_run(ranks, tmp, world_yml, "train1", n=1)
+            held = {}
+            for fault in (None, *FAULTS):
+                pair = _train_run(ranks, tmp, world_yml, "train",
+                                  fault=fault)
+                gate = _train_gate("train", pair, single, tmp)
+                held[fault] = gate["gates_held"]
+                _mp_print("planted_fault", {"fault": fault, **gate,
+                                            "card": label})
+        finally:
+            ranks.close()
+    log(f"planted faults in {time.perf_counter() - t0:.1f} s: gates held "
+        f"{held}")
+    if not held[None] or any(held[f] for f in FAULTS):
+        raise RuntimeError(f"the training gates did not tell the faults "
+                           f"from the clean pair: held {held}")
+    print(json.dumps({"planted_faults": {
+        "caught": sorted(FAULTS), "clean_pair_held": True}}), flush=True)
+
+
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--rank"]:
+        fault, rest = None, sys.argv[3:]
+        if rest[:1] == ["--fault"]:
+            fault, rest = rest[1], rest[2:]
+        rank_main(sys.argv[2], rest[0], rest[1:], fault)
+    elif sys.argv[1:] == ["--planted-faults"]:
+        planted_faults()
+    else:
+        main()

@@ -13,6 +13,11 @@ at its root:
 
 `load_checkpoint` reads either; from a training directory it takes the best
 step by val_loss, else the latest, as the JAX `load_for_inference` does.
+
+In several processes (`parallel/multihost.py`) every process holds a full
+replica, so process 0 writes its own (the JAX package's `host_local_tree`
+fetch has nothing to gather) and applies the retention, and every process
+waits for it.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ from typing import Any, Optional
 
 import torch
 
+from .parallel import multihost
 from .utils.config import Config, load_config, save_config
 
 HPARAMS_NAME = "hparams.yaml"
@@ -104,7 +110,14 @@ class CheckpointManager:
         training loop reaches one step from several paths (periodic,
         epoch end, final). Non-finite metric values are dropped, and a
         save left with no metrics is exempt from best-N cleanup, so a
-        SIGTERM checkpoint saved before any validation is kept."""
+        SIGTERM checkpoint saved before any validation is kept. In several
+        processes, process 0 writes, and every process waits for its answer
+        (a broadcast, so a barrier too) and returns it."""
+        saved = self._write(step, state, metrics, config) \
+            if multihost.process_index() == 0 else None
+        return multihost.broadcast_object(saved)
+
+    def _write(self, step, state, metrics, config) -> bool:
         if step in self.all_steps():
             return False
         metrics = {k: float(v) for k, v in (metrics or {}).items()

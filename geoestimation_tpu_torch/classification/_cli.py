@@ -1,8 +1,8 @@
 """Flags and engine construction shared by the inference and test CLIs.
 
 The flag names are those of `classification/inference.py` and
-`classification/test.py`. A flag of a feature the port does not have yet
-is parsed and then refused with a message naming its ROADMAP.md item.
+`classification/test.py`; each CLI adds the multi-process flags
+(`parallel.multihost.add_coordinator_args`) with its own help.
 """
 
 from __future__ import annotations
@@ -12,14 +12,7 @@ import os
 
 import torch
 
-from ..eval.engine import MULTI_PROCESS_ITEM
-
-# flag -> (default, ROADMAP.md Queue 1 item that ports it)
-NOT_PORTED = {
-    "coordinator": (None, MULTI_PROCESS_ITEM),
-    "num_processes": (None, MULTI_PROCESS_ITEM),
-    "process_id": (None, MULTI_PROCESS_ITEM),
-}
+from ..parallel import multihost
 
 
 def add_shared_args(p: argparse.ArgumentParser):
@@ -61,16 +54,6 @@ def add_shared_args(p: argparse.ArgumentParser):
                         "imported reference checkpoints; forces --crops 10")
     add_feature_tta_args(p)
     add_calib_args(p)
-    add_coordinator_args(p)
-
-
-def add_coordinator_args(p: argparse.ArgumentParser):
-    """The multi-process flags of the JAX CLIs, parsed and then refused
-    (`check_ported`)."""
-    not_ported = "not ported yet (see ROADMAP.md)"
-    p.add_argument("--coordinator", default=None, help=not_ported)
-    p.add_argument("--num_processes", type=int, default=None, help=not_ported)
-    p.add_argument("--process_id", type=int, default=None, help=not_ported)
 
 
 def add_feature_tta_args(p: argparse.ArgumentParser):
@@ -121,19 +104,32 @@ def int8_kwargs(args, persist=True):
                 int8_recalibrate=args.recalibrate)
 
 
-def check_ported(args, not_ported=NOT_PORTED):
-    """Exit with a clear message on a flag the port does not have yet."""
-    for flag, (default, item) in not_ported.items():
-        if getattr(args, flag) != default:
-            raise SystemExit(f"--{flag} is not ported yet (ROADMAP.md "
-                             f"Queue 1, {item!r})")
+def default_calib_dir(args, image_dir):
+    """int8 in several processes: each process calibrating on its own first
+    batch would fit scales to its own file slice, N quantizers under one
+    merged table. Without --calib_dir, every process calibrates on the
+    first --calib_images of the FULL `image_dir` in sorted order
+    (`InferenceEngine._calib_dir_batches` is unsliced), so all derive the
+    same scales."""
+    if (multihost.process_count() > 1 and args.precision == 8
+            and not args.calib_dir):
+        args.calib_dir = image_dir
+        if multihost.process_index() == 0:
+            print("int8 multi-process: defaulting --calib_dir to "
+                  f"{image_dir} so every process calibrates on the same "
+                  "images", flush=True)
+
+
+def process_slice():
+    """This process's (p, n) share of a folder, None in one process."""
+    n = multihost.process_count()
+    return (multihost.process_index(), n) if n > 1 else None
 
 
 def make_engine(args, use_pallas=False):
     from ..checkpoint import load_checkpoint
     from ..eval.engine import InferenceEngine
 
-    check_ported(args)
     config, state_dict = load_checkpoint(args.checkpoint,
                                          hparams_path=args.hparams)
     return InferenceEngine(
@@ -150,6 +146,6 @@ def make_engine(args, use_pallas=False):
         tta_fold=args.tta_fold,
         feature_tta_level=args.feature_tta_level,
         fast_decode=args.fast_decode,
-        device="cpu" if args.cpu else "cuda",
+        device=multihost.local_device(args.cpu),
         **int8_kwargs(args),
     )

@@ -2,11 +2,14 @@
 
     python -m geoestimation_tpu_torch.classification.train_base \\
         --config configs/baseM.yml [--max_steps N] [--no_resume] \\
-        [--checkpoint_dir DIR] [--profile_dir DIR] [--cpu]
+        [--checkpoint_dir DIR] [--profile_dir DIR] [--cpu] \\
+        [--coordinator HOST:PORT --num_processes N --process_id P]
 
 One YAML config carries the model and trainer parameters (the schema of
-`utils/config.py`). Runs on CUDA unless --cpu. The multi-process flags are
-parsed and refused: multi-process training is not ported yet.
+`utils/config.py`). Runs on CUDA unless --cpu. In N processes (the same
+command with its own --process_id on each), `train_params.batch_size` stays
+the global batch and each process feeds batch_size / N rows of it
+(`parallel/multihost.py`).
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from ._cli import add_coordinator_args, check_ported
+from ..parallel import multihost
 
 
 def build_parser():
@@ -33,15 +36,20 @@ def build_parser():
                    help="write a torch.profiler trace (trace.json) here")
     p.add_argument("--cpu", action="store_true",
                    help="train on the CPU instead of CUDA")
-    add_coordinator_args(p)
+    multihost.add_coordinator_args(
+        p, extra_help="Run the SAME command on every process with its own "
+                      "--process_id (launch recipe in parallel/multihost.py)")
     return p
 
 
 def main(argv=None):
     """Returns the Trainer, after its fit."""
     args = build_parser().parse_args(argv)
-    check_ported(args)
+    with multihost.joined(args):
+        return _train(args)
 
+
+def _train(args):
     from ..train.loop import Trainer
     from ..utils.config import load_config
 
@@ -54,7 +62,7 @@ def main(argv=None):
         config,
         search_dirs=[os.path.dirname(os.path.abspath(args.config)),
                      os.getcwd()],
-        device="cpu" if args.cpu else "cuda",
+        device=multihost.local_device(args.cpu),
     )
     trainer.fit(max_steps=args.max_steps, resume=not args.no_resume)
     return trainer

@@ -1,7 +1,6 @@
 """Image-folder eval dataset: the reference's inference/test input format.
 
-The port of `geoestimation_tpu/data/image_folder.py` (without process
-slicing). Reference behavior (README.md:110): `--image_dir`
+The port of `geoestimation_tpu/data/image_folder.py`. Reference behavior (README.md:110): `--image_dir`
 globs `*.jpg, *.jpeg, *.png`; meta CSVs carry required columns IMG_ID, LAT,
 LON (README.md:156). Batches are padded to a fixed size with a validity mask,
 so every batch has one shape. pandas is imported where a meta CSV is read.
@@ -48,6 +47,7 @@ def iter_image_folder(
     tencrop_host: bool = False,
     crop: int = 224,
     fast_decode: bool = False,
+    process_slice=None,
 ) -> Iterator[EvalBatch]:
     """Decode-and-batch iterator with background prefetch.
 
@@ -61,12 +61,20 @@ def iter_image_folder(
     fast_decode=True enables scaled DCT decode for JPEGs (several times
     faster host ingest on large photos, slightly different pixel values —
     see ingest.decode.decode_pil); off by default for parity.
+
+    process_slice=(p, n): multi-process eval (parallel/multihost.py) --
+    this process keeps sorted(files)[p::n]. An empty slice (a folder
+    smaller than the group) yields zero batches rather than raising: the
+    global set is non-empty and the count merge handles idle processes.
     """
     paths = list_images(image_dir)
     if not paths:
         raise FileNotFoundError(
             f"no {'/'.join(IMAGE_EXTENSIONS)} images in {image_dir!r}"
         )
+    if process_slice is not None:
+        p, n = process_slice
+        paths = paths[p::n]
 
     def produce(q, stop):
         def put(item):

@@ -10,7 +10,11 @@ fast path with the fused CUDA bottleneck kernel, or the int8 path
 use) -- folds the crops, applies the f* rule, and returns predicted classes
 and coordinates for every partitioning key plus 'hierarchy' in one small
 transfer. An ISN checkpoint (scene-gated heads, `models/isn.py`) runs on
-every path: each builds its heads from the checkpoint.
+every path: each builds its heads from the checkpoint. With a `layout`
+(`parallel/mesh.py`) the engine holds one replica per device of the layout
+and splits each batch over them; with `process_slice` the folder-level
+entry points take one process's share of a folder and merge the GCD counts
+across processes (`parallel/multihost.py`).
 
 Runs on CUDA unless `device="cpu"` is asked for; there is no fallback from
 one to the other.
@@ -63,14 +67,6 @@ def default_scales_path(checkpoint: str) -> str:
     d = checkpoint if os.path.isdir(checkpoint) else os.path.dirname(
         os.path.abspath(checkpoint))
     return os.path.join(d, "int8_scales.json")
-
-
-MULTI_PROCESS_ITEM = "Multi-process eval and training"
-
-
-def _not_ported(what, item):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, {item!r})")
 
 
 def resolve_device(device) -> torch.device:
@@ -136,7 +132,11 @@ class InferenceEngine:
         float32). tta_fold: how per-crop
         logits combine (eval.infer.mean_tta_logits). fast_decode: scaled
         DCT JPEG decode on the host (calibration batches too). device:
-        'cuda' (default) or 'cpu'.
+        'cuda' (default) or 'cpu'. layout: a `parallel.mesh.MeshLayout`
+        whose local devices replace `device`: one replica of the built
+        forward (module, fast, feature or int8) on each, every batch split
+        evenly over them, each part launched before any is waited for, the
+        parts' predictions concatenated in order.
 
         int8: post-training int8 quantization (`models/quant.py`); `dtype`
         and `fast` are then unused. Calibration source, in priority order:
@@ -154,8 +154,6 @@ class InferenceEngine:
         autoselect_scales`) | 'absmax' | 'p999' | 'p9999'; calib_headroom:
         scale multiplier; int8_recalibrate: ignore any cache.
         """
-        if layout is not None:
-            _not_ported("sharded eval (layout)", MULTI_PROCESS_ITEM)
         if tta_mode not in ("device", "host_exact", "feature"):
             raise ValueError(f"unknown tta_mode {tta_mode!r}")
         if tta_mode == "feature" and n_crops not in (5, 10):
@@ -166,7 +164,10 @@ class InferenceEngine:
             raise ValueError(
                 f"unknown tta_fold {tta_fold!r}; have {TTA_FOLDS}")
         mp = config.model_params
-        self.device = resolve_device(device)
+        devices = layout.local_devices() if layout is not None else [device]
+        self.devices = [resolve_device(d) for d in devices]
+        self.device = self.devices[0]
+        self.layout = layout
         if partitionings is None:
             paths = resolve_partitioning_paths(mp.partitionings.files,
                                                search_dirs)
@@ -174,8 +175,9 @@ class InferenceEngine:
                 paths, names=list(mp.partitionings.shortnames))
         self.partitionings = partitionings
         self.hierarchy = Hierarchy.build(partitionings)
-        self.harrays = HierarchyArrays.from_hierarchy(self.hierarchy,
-                                                      self.device)
+        self._harrays = [HierarchyArrays.from_hierarchy(self.hierarchy, d)
+                         for d in self.devices]
+        self.harrays = self._harrays[0]
         self.n_crops = n_crops
         self.crop = crop
         self.dtype = dtype
@@ -186,8 +188,10 @@ class InferenceEngine:
         n_classes = tuple(len(p) for p in partitionings)
         self.model = None
         self._fast_apply = None   # the fast path's, or feature TTA's, apply
+        self._nets = []           # each device's forward, crops -> logits
         self._int8 = int8
         self._int8_apply = None   # built at the first batch, after calibration
+        self._int8_nets = []
         if int8:
             from ..models.quant import quantize_model, weights_hash
 
@@ -213,10 +217,11 @@ class InferenceEngine:
                     "(use --precision 16, or drop --feature_tta)")
             from ..models.fast_infer import build_feature_tta_apply
 
-            self._fast_apply = build_feature_tta_apply(
+            self._nets = [build_feature_tta_apply(
                 state_dict, mp.arch, n_classes=n_classes,
                 use_pallas=use_pallas, crop=crop, n_crops=n_crops,
-                level=feature_tta_level, device=self.device)
+                level=feature_tta_level, device=d) for d in self.devices]
+            self._fast_apply = self._nets[0]
         elif fast:
             # The fold computes in bf16; refuse a float32 request instead of
             # returning bf16 results labeled fp32.
@@ -227,16 +232,19 @@ class InferenceEngine:
                     "(use --precision 16, or drop --fast)")
             from ..models.fast_infer import build_fast_apply
 
-            self._fast_apply = build_fast_apply(
+            self._nets = [build_fast_apply(
                 state_dict, mp.arch, n_classes=n_classes,
                 use_pallas=use_pallas, use_pallas_s2=use_pallas_s2,
-                device=self.device)
+                device=d) for d in self.devices]
+            self._fast_apply = self._nets[0]
         else:
-            with torch.device("meta"):
-                model = model_from_config(config, n_classes, dtype)
-            model.load_state_dict(state_dict, strict=True, assign=True)
-            self.model = model.to(
-                self.device, memory_format=torch.channels_last).eval()
+            for d in self.devices:
+                with torch.device("meta"):
+                    model = model_from_config(config, n_classes, dtype)
+                model.load_state_dict(state_dict, strict=True, assign=True)
+                self._nets.append(model.to(
+                    d, memory_format=torch.channels_last).eval())
+            self.model = self._nets[0]
 
     # -- int8: calibration and the scales cache ---------------------------------
 
@@ -437,16 +445,17 @@ class InferenceEngine:
         feature_tta = ({"crop": self.crop, "n_crops": self.n_crops,
                         "level": self._feature_tta_level}
                        if self.tta_mode == "feature" else None)
-        self._int8_apply = build_int8_apply(
+        self._int8_nets = [build_int8_apply(
             self._qnet, scales, n_classes=self._n_classes,
-            feature_tta=feature_tta, device=self.device)
+            feature_tta=feature_tta, device=d) for d in self.devices]
+        self._int8_apply = self._int8_nets[0]
 
     @torch.inference_mode()
-    def crop_logits(self, images_u8):
-        """uint8 (B, base, base, 3) tensor on the engine's device, or host
-        crops (B, n_crops, crop, crop, 3) -> list of per-head
-        (B * n_crops, C) float32 logits. An int8 engine calibrates on these
-        images if it has not yet."""
+    def crop_logits(self, images_u8, replica=0):
+        """uint8 (B, base, base, 3) tensor on the device of `replica` (the
+        engine's device by default), or host crops (B, n_crops, crop, crop,
+        3) -> list of per-head (B * n_crops, C) float32 logits. An int8
+        engine calibrates on these images if it has not yet."""
         feature = self.tta_mode == "feature"
         if self._int8:
             if self._int8_apply is None:
@@ -459,9 +468,9 @@ class InferenceEngine:
             else:
                 x = eval_pipeline_s8(images_u8, n_crops=self.n_crops,
                                      crop=self.crop)
-            return self._int8_apply(x.contiguous())
+            return self._int8_nets[replica](x.contiguous())
         if feature:
-            return self._fast_apply(normalize(images_u8, torch.bfloat16))
+            return self._nets[replica](normalize(images_u8, torch.bfloat16))
         if images_u8.ndim == 5:
             # host-precropped: normalize only, crops folded into the batch
             x = normalize(images_u8.reshape((-1,) + images_u8.shape[-3:]),
@@ -469,15 +478,13 @@ class InferenceEngine:
         else:
             x = eval_pipeline(images_u8, n_crops=self.n_crops,
                               crop=self.crop, dtype=self.dtype)
-        if self._fast_apply is not None:
-            return self._fast_apply(x)
-        return self.model(x)
+        return self._nets[replica](x)
 
     @torch.inference_mode()
-    def _forward(self, images_u8):
+    def _forward(self, images_u8, replica=0):
         logits = [mean_tta_logits(l, self.n_crops, fold=self.tta_fold)
-                  for l in self.crop_logits(images_u8)]
-        return self._pack(predict_all(logits, self.harrays))
+                  for l in self.crop_logits(images_u8, replica)]
+        return self._pack(predict_all(logits, self._harrays[replica]))
 
     @staticmethod
     def _pack(preds):
@@ -501,8 +508,16 @@ class InferenceEngine:
         images_u8 = np.asarray(images_u8)
         if self._int8 and self._int8_apply is None:
             self._build_int8(images_u8)
-        images = torch.as_tensor(images_u8).to(self.device)
-        flat = self._forward(images).cpu().numpy()
+        if self.layout is None:
+            flat = self._forward(torch.as_tensor(images_u8).to(self.device))
+            flat = flat.cpu().numpy()
+        else:
+            from ..parallel.mesh import shard_batch_arrays
+
+            # every part is launched before the first transfer waits for it
+            parts = [self._forward(x, r) for r, x in enumerate(
+                shard_batch_arrays(self.layout, images_u8))]
+            flat = torch.cat([p.cpu() for p in parts], dim=-1).numpy()
         return {
             k: (flat[i, 0].astype(np.int64), flat[i, 1], flat[i, 2])
             for i, k in enumerate(self.pred_keys)
@@ -514,19 +529,19 @@ class InferenceEngine:
                     num_workers: Optional[int] = None, process_slice=None):
         """Reference inference.py output contract (README.md:118-124): a
         pandas DataFrame of (img_id, p_key, pred_class, pred_lat, pred_lng)
-        rows."""
+        rows.
+
+        process_slice=(p, n): multi-process eval -- this process handles
+        sorted(files)[p::n] only (parallel/multihost.py)."""
         import pandas as pd
 
         from ..data.image_folder import iter_image_folder
 
-        if process_slice is not None:
-            _not_ported("multi-process eval (process_slice)",
-                        MULTI_PROCESS_ITEM)
         rows = []
         for batch in iter_image_folder(
             image_dir, batch_size=batch_size, num_workers=num_workers,
             tencrop_host=(self.tta_mode == "host_exact"), crop=self.crop,
-            fast_decode=self._fast_decode,
+            fast_decode=self._fast_decode, process_slice=process_slice,
         ):
             preds = self.predict_batch(batch.images)
             for key, (cls, lat, lng) in preds.items():
@@ -546,22 +561,26 @@ class InferenceEngine:
                      num_workers: Optional[int] = None,
                      process_slice=None) -> dict:
         """Reference test.py behavior: GCD threshold accuracies per p_key
-        against a meta DataFrame (IMG_ID, LAT, LON)."""
+        against a meta DataFrame (IMG_ID, LAT, LON).
+
+        process_slice=(p, n): multi-process eval -- this process scores
+        sorted(files)[p::n], then every process merges its count-based
+        accumulators (one all-reduce at the end), so the returned table
+        covers the FULL directory on every process."""
         from ..data.image_folder import iter_image_folder
 
-        if process_slice is not None:
-            _not_ported("multi-process eval (process_slice)",
-                        MULTI_PROCESS_ITEM)
         gt = {
             str(r.IMG_ID): (float(r.LAT), float(r.LON))
             for r in meta.itertuples()
         }
+        # one accumulator per pred key up front: every process brings the
+        # same key set to the merge, one with an empty file slice too
         accs = {k: GcdAccumulator(thresholds_km) for k in self.pred_keys}
         n_missing = 0
         for batch in iter_image_folder(
             image_dir, batch_size=batch_size, num_workers=num_workers,
             tencrop_host=(self.tta_mode == "host_exact"), crop=self.crop,
-            fast_decode=self._fast_decode,
+            fast_decode=self._fast_decode, process_slice=process_slice,
         ):
             true_lat = np.zeros(len(batch.ids), np.float32)
             true_lng = np.zeros(len(batch.ids), np.float32)
@@ -582,6 +601,10 @@ class InferenceEngine:
                     plat, plng, true_lat, true_lng, thresholds_km,
                     valid=valid)
                 accs[p_key].update(counts, total)
+        if process_slice is not None and process_slice[1] > 1:
+            from ..parallel.multihost import merge_gcd_accumulators
+
+            n_missing = merge_gcd_accumulators(accs, n_missing)
         result = {k: a.result() for k, a in accs.items()}
         if n_missing:
             result["_n_images_without_meta"] = n_missing

@@ -12,7 +12,8 @@ Training: a random crop (or a random resized crop of one size per step)
 with per-image flips, then normalization. Each augmentation is split into
 its draws (`crop_draws`, made on the host from `(seed, step)` alone, so a
 resumed run draws what an unbroken run draws) and a pure function of those
-draws (`crop_flip`, `resized_crop_flip`).
+draws (`crop_flip`, `resized_crop_flip`). In several processes the draws
+are the global batch's, and each process takes those of its own rows.
 """
 
 from __future__ import annotations
@@ -205,16 +206,25 @@ def augment(images_u8, draws, crop=224, crop_scale=None):
     return crop_flip(images_u8, **draws)
 
 
+def draw_rows(draws, lo, hi):
+    """The draws of rows [lo, hi) of a batch's `crop_draws`."""
+    return {k: v if k == "size" else v[lo:hi] for k, v in draws.items()}
+
+
 def train_pipeline(images_u8, seed, step, crop=224, dtype=torch.bfloat16,
-                   crop_scale=None, draws=None):
+                   crop_scale=None, draws=None, shard=(0, 1)):
     """uint8 (B, base, base, 3) -> augmented normalized (B, crop, crop, 3).
 
     The draws come from `(seed, step)` (`step_generator`, `crop_draws`)
     unless given. crop_scale: optional (min, max) area-scale range for the
     random resized crop (config train_params.train_crop_scale); None = plain
-    random crop."""
+    random crop. shard=(p, n): the B images are rows [p*B, (p+1)*B) of a
+    global batch of n*B, whose draws are made and this share taken."""
     if draws is None:
         b, h, w, _ = images_u8.shape
-        draws = crop_draws(step_generator(seed, step), b, h, w, crop,
+        p, n = shard
+        draws = crop_draws(step_generator(seed, step), b * n, h, w, crop,
                            crop_scale)
+        if n > 1:
+            draws = draw_rows(draws, p * b, (p + 1) * b)
     return normalize(augment(images_u8, draws, crop, crop_scale), dtype)

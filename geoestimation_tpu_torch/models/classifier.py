@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import multihost
 from .resnet import FEATURE_DIM, build_backbone
 
 
@@ -63,9 +64,11 @@ def multi_head_cross_entropy(logits_list, labels, label_smoothing=0.0,
     Each head's loss is the sum over its valid examples divided by
     max(#valid, 1); with label smoothing the log-likelihood is
     (1 - s) * log p[label] + s * mean(log p). Returns (total scalar,
-    per-head list).
+    per-head list). In several processes #valid is the global batch's (the
+    counts summed over the ranks first), so the local losses of the ranks
+    sum to the global batch's loss, as under the JAX package's GSPMD.
     """
-    per_head = []
+    nlls, valids = [], []
     for p, logits in enumerate(logits_list):
         y = labels[p].long()
         logp_all = F.log_softmax(logits, dim=-1)
@@ -76,6 +79,8 @@ def multi_head_cross_entropy(logits_list, labels, label_smoothing=0.0,
         v = y >= 0
         if valid is not None:
             v = v & valid[p]
-        nll = torch.where(v, -logp, torch.zeros_like(logp))
-        per_head.append(nll.sum() / v.sum().clamp(min=1))
+        nlls.append(torch.where(v, -logp, torch.zeros_like(logp)).sum())
+        valids.append(v.sum())
+    counts = multihost.device_sum(torch.stack(valids)).clamp(min=1)
+    per_head = [nll / counts[p] for p, nll in enumerate(nlls)]
     return sum(per_head), per_head

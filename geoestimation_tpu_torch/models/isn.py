@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import multihost
 from .classifier import multi_head_cross_entropy
 from .resnet import FEATURE_DIM, build_backbone
 
@@ -85,14 +86,17 @@ def isn_loss(scene_logits, head_logits, geo_labels, scene_labels,
       geo_labels: (P, B) int, -1 = ignore.
       scene_labels: (B,) int, -1 = ignore (scene CE masked; geo routed by
         the predicted scene for those rows).
-    Returns (total, {"scene_loss", "geo_loss", "per_head"}).
+    Returns (total, {"scene_loss", "geo_loss", "per_head"}). In several
+    processes each count is the global batch's, as in
+    `multi_head_cross_entropy`.
     """
     scene_labels = scene_labels.long()
     s_valid = scene_labels >= 0
     s_safe = scene_labels.clamp(min=0)
     s_logp = F.log_softmax(scene_logits, -1).gather(-1, s_safe[:, None])[:, 0]
     s_nll = torch.where(s_valid, -s_logp, torch.zeros_like(s_logp))
-    scene_loss = s_nll.sum() / s_valid.sum().clamp(min=1)
+    scene_loss = s_nll.sum() / multihost.device_sum(
+        s_valid.sum()).clamp(min=1)
     route = torch.where(s_valid, s_safe, scene_logits.argmax(-1))
     gated = [route_rows(h, route) for h in head_logits]
     geo_loss, per_head = multi_head_cross_entropy(

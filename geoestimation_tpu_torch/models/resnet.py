@@ -16,8 +16,12 @@ back; the global pool summed in float32 and rounded to the compute dtype.
 `forward(images, train=True)` is flax's train mode (`nn.BatchNorm`,
 momentum 0.9): each BatchNorm normalizes with its batch's float32 mean and
 biased "fast" variance E[x^2] - E[x]^2 (clipped at 0), and the running
-statistics become 0.9 * old + 0.1 * batch, once per forward, after it. With
-`remat`, each bottleneck block is recomputed on the backward pass
+statistics become 0.9 * old + 0.1 * batch, once per forward, after it. In
+several processes the batch is the global one, as under the JAX package's
+GSPMD: the statistics are summed over the ranks by a differentiable
+all-reduce (`parallel/multihost.py`'s device group), so the running
+statistics agree on every rank without a broadcast. With `remat`, each
+bottleneck block is recomputed on the backward pass
 (`torch.utils.checkpoint`, flax's `nn.remat(Bottleneck)`).
 """
 
@@ -27,6 +31,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..parallel import multihost
 
 # Canonical stage sizes -- the single source for anything that walks block
 # names (fast inference path, weights bridge).
@@ -56,10 +62,20 @@ def batch_norm_train(x, bn: nn.BatchNorm2d):
     float32, the variance E[x^2] - E[x]^2 clipped at 0 (biased), then
     ((x - mean) * (rsqrt(var + eps) * scale)) + bias in float32, cast back to
     x's dtype. Returns (y, mean, var); the running statistics are the
-    caller's to update (`update_running_stats`)."""
+    caller's to update (`update_running_stats`).
+
+    The statistics are the float32 per-channel sums of x and x^2 over the
+    element count. With a device group of several ranks they are the
+    global batch's: the sums and the count are summed over the ranks by an
+    all-reduce whose backward sums the gradients (SyncBatchNorm's
+    pattern), then divided."""
     xf = x.float()
-    mean = xf.mean(dim=(0, 2, 3))
-    var = torch.clamp(xf.square().mean(dim=(0, 2, 3)) - mean.square(), min=0)
+    c = x.shape[1]
+    sums = multihost.sum_over_ranks(torch.cat([
+        xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
+        xf.new_full((1,), x.numel() // c)]))
+    mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+    var = torch.clamp(sq - mean.square(), min=0)
     mul = torch.rsqrt(var + bn.eps) * bn.weight
     y = (xf - mean[:, None, None]) * mul[:, None, None]
     return (y + bn.bias[:, None, None]).to(x.dtype), mean, var

@@ -30,10 +30,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from ..classification._cli import (
-    MULTI_PROCESS_ITEM,
     add_calib_args,
     add_feature_tta_args,
-    check_ported,
     int8_kwargs,
 )
 
@@ -144,15 +142,19 @@ class MicroBatcher:
 
 
 def device_names(engine):
-    """The torch device the engine runs on, with the card's name on CUDA."""
+    """The torch devices the engine runs on (one, or each of its layout's),
+    with the card's name on CUDA."""
     import torch
 
-    device = engine.device
-    if device.type == "cuda":
-        index = device.index if device.index is not None else \
-            torch.cuda.current_device()
-        return [f"cuda:{index} {torch.cuda.get_device_name(index)}"]
-    return [str(device)]
+    names = []
+    for device in engine.devices:
+        if device.type == "cuda":
+            index = device.index if device.index is not None else \
+                torch.cuda.current_device()
+            names.append(f"cuda:{index} {torch.cuda.get_device_name(index)}")
+        else:
+            names.append(str(device))
+    return names
 
 
 class GeoInferenceServer:
@@ -250,10 +252,6 @@ class GeoInferenceServer:
         self.httpd.server_close()
 
 
-# flag -> (default, ROADMAP.md Queue 1 item that ports it)
-NOT_PORTED = {"shard_batch": (False, MULTI_PROCESS_ITEM)}
-
-
 def build_parser():
     import argparse
 
@@ -285,7 +283,11 @@ def build_parser():
     add_feature_tta_args(p)
     add_calib_args(p)
     p.add_argument("--shard_batch", action="store_true",
-                   help="not ported yet (see ROADMAP.md)")
+                   help="split each micro-batch over ALL local cards "
+                        "(one replica of the network on each); "
+                        "--batch_size must divide evenly by the local card "
+                        "count. Default: one card (run one server per card "
+                        "instead for latency-bound fleets)")
     return p
 
 
@@ -299,7 +301,21 @@ def main(argv=None):
 
     p = build_parser()
     args = p.parse_args(argv)
-    check_ported(args, NOT_PORTED)  # before the checkpoint load
+    layout = None
+    if args.shard_batch:
+        # validate BEFORE the (slow) checkpoint load: a bad batch size
+        # should fail at startup, not after minutes of loading
+        from ..parallel.mesh import default_devices, make_mesh
+
+        devices = ([torch.device("cpu")] if args.cpu
+                   else default_devices())
+        n_local = len(devices)
+        if args.batch_size % n_local:
+            p.error(f"--shard_batch: --batch_size {args.batch_size} not "
+                    f"divisible by the {n_local} local devices")
+        layout = make_mesh(n_local, 1, devices=devices)
+        print(f"sharding micro-batches over {n_local} local devices",
+              flush=True)
     if args.feature_tta and args.crops == 1:
         p.error("--feature_tta needs --crops 5 or 10")
     config, state_dict = load_checkpoint(args.checkpoint,
@@ -317,7 +333,7 @@ def main(argv=None):
         fast_decode=args.fast_decode,
         search_dirs=[os.path.dirname(os.path.abspath(args.checkpoint)),
                      args.checkpoint, os.getcwd()],
-        device="cpu" if args.cpu else "cuda",
+        device="cpu" if args.cpu else "cuda", layout=layout,
         **int8_kwargs(args, persist=not synthetic_calib),
     )
     if args.warmup or args.calib_dir:

@@ -1,17 +1,22 @@
 """Training loop: epochs, logging, validation, checkpointing.
 
-The port of `geoestimation_tpu/train/loop.py`, in one process on one
-device: the step on the device for each batch of the loader, validation at
-intervals (val_loss and the GCD accuracies of the f* rule), best-val-loss
-checkpoint retention, resume from the latest checkpoint, a checkpoint on
-SIGTERM, and an optional `torch.profiler` trace (`profile_dir`).
-Multi-process training and a mesh of more than one device are not ported
-yet (ROADMAP.md Queue 1, 'Multi-process eval and training').
+The port of `geoestimation_tpu/train/loop.py`: the step on the device for
+each batch of the loader, validation at intervals (val_loss and the GCD
+accuracies of the f* rule), best-val-loss checkpoint retention, resume from
+the latest checkpoint, a checkpoint on SIGTERM, and an optional
+`torch.profiler` trace (`profile_dir`).
+
+In several processes (`parallel/multihost.py`) every process runs this same
+Trainer on its device, one slot of the data axis each: `data_feed: lockstep`
+slices identical global batches (`LockstepSlicer`), `strided` reads a shard
+subset per process (`StridedFeed`); validation stays lockstep and its sums
+are merged over the ranks; process 0 logs and writes checkpoints. The JAX
+loop acts on each process's own SIGTERM flag; this one agrees the flag over
+the ranks once a step, so every rank checkpoints at the same step.
 """
 
 from __future__ import annotations
 
-import math
 import os
 import signal
 import time
@@ -22,15 +27,13 @@ import torch
 
 from ..checkpoint import CheckpointManager
 from ..data.loader import ShardBatcher, load_label_csv
-from ..data.shards import count_records
-from ..eval.engine import (
-    MULTI_PROCESS_ITEM,
-    resolve_device,
-    resolve_partitioning_paths,
-)
+from ..data.shards import count_records, expand_shard_patterns
+from ..eval.engine import resolve_device, resolve_partitioning_paths
 from ..eval.infer import HierarchyArrays, predict_hierarchical
 from ..eval.metrics import GcdAccumulator, gcd_threshold_counts
 from ..geo import Hierarchy, load_partitionings
+from ..parallel import multihost
+from ..parallel.mesh import make_mesh
 from ..utils.logging import MetricsLogger
 from .init import init_weights, model_from_config
 from .optim import build_optimizer
@@ -47,17 +50,19 @@ class Trainer:
     def __init__(self, config, search_dirs=(), log_fn=print, device="cuda"):
         self.config = config
         self.tp = tp = config.train_params
-        if tp.mesh_shape and math.prod(tp.mesh_shape) != 1:
-            raise NotImplementedError(
-                f"train_params.mesh_shape {list(tp.mesh_shape)}: a mesh of "
-                f"more than one device is not ported yet (ROADMAP.md Queue "
-                f"1, {MULTI_PROCESS_ITEM!r})")
         if tp.data_feed not in ("lockstep", "strided"):
             raise ValueError(
                 f"unknown train_params.data_feed {tp.data_feed!r}; "
                 "expected 'lockstep' or 'strided'")
-        self.log = log_fn
+        # every process runs this same Trainer; process 0 logs and writes
+        self.n_procs = multihost.process_count()
+        self.proc_id = multihost.process_index()
+        self.log = log_fn if self.proc_id == 0 else (lambda *_: None)
         self.device = resolve_device(device)
+        # validates mesh_shape: the data axis is the ranks in order, one
+        # device each (None = all of them); in one process, this device
+        make_mesh(*(tp.mesh_shape or (None,)),
+                  devices=None if self.n_procs > 1 else [self.device])
         paths = resolve_partitioning_paths(
             config.model_params.partitionings.files, list(search_dirs))
         self.partitionings = load_partitionings(
@@ -71,8 +76,11 @@ class Trainer:
         self.ckpt = CheckpointManager(
             tp.checkpoint_dir, max_to_keep=tp.keep_checkpoints,
             best_metric="val_loss" if tp.val_shards else None)
-        self.metrics = MetricsLogger(tp.checkpoint_dir,
-                                     stdout=lambda s: None)
+        # process 0 only: N processes appending to one metrics.csv would
+        # interleave rows
+        self.metrics = (MetricsLogger(tp.checkpoint_dir,
+                                      stdout=lambda s: None)
+                        if self.proc_id == 0 else None)
         self.batch_wait_s = 0.0   # host time spent waiting for train batches
 
     # -- state --------------------------------------------------------------
@@ -84,10 +92,20 @@ class Trainer:
         optimizer = build_optimizer(model.parameters(), self.tp.optimizer,
                                     self.tp.lr_schedule, steps_per_epoch)
         self.schedule = optimizer.schedule
-        return TrainState(model, optimizer)
+        return self._sync(TrainState(model, optimizer))
+
+    @staticmethod
+    def _sync(state: TrainState) -> TrainState:
+        """Rank 0's parameters, statistics and optimizer slots on every
+        rank (the JAX loop's `place`; no-op in one process)."""
+        multihost.broadcast_tensors(
+            list(state.model.state_dict().values())
+            + [t for slot in state.optimizer.slots.values() for t in slot])
+        return state
 
     def maybe_resume(self, state: TrainState) -> TrainState:
-        latest = self.ckpt.latest_step()
+        # every rank restores the step process 0 sees as the latest
+        latest = multihost.broadcast_object(self.ckpt.latest_step())
         if latest is None:
             return state
         self.log(f"resuming from step {latest}")
@@ -95,7 +113,7 @@ class Trainer:
         state.model.load_state_dict(restored["model"])
         state.optimizer.load_state_dict(restored["optimizer"])
         state.step = int(restored["step"])
-        return state
+        return self._sync(state)
 
     # -- data ---------------------------------------------------------------
 
@@ -107,9 +125,7 @@ class Trainer:
                 self.config.model_params.partitionings.shortnames,
                 with_scene=True,
             )
-        return ShardBatcher(
-            patterns,
-            batch_size=self.tp.batch_size,
+        common = dict(
             partitionings=None if label_map else self.partitionings,
             label_map=label_map,
             scene_map=scene_map,
@@ -121,6 +137,34 @@ class Trainer:
             # duplicates in val_loss / GCD accuracy
             mask_padding=not shuffle,
         )
+        n, p = self.n_procs, self.proc_id
+        if n > 1 and self.tp.data_feed == "strided" and shuffle:
+            # strided (training feed only): each process reads shards[p::n]
+            # and decodes only its rows; StridedFeed agrees the batch counts
+            # so uneven shard subsets cannot leave a rank in a collective.
+            # Validation stays lockstep: its metrics must match one
+            # process's, and a val set may have fewer shards than ranks.
+            if self.tp.batch_size % n:
+                raise ValueError(f"global batch {self.tp.batch_size} not "
+                                 f"divisible by {n} processes")
+            # checked here, not at the first batch: every process sees the
+            # same shard list, so all raise together BEFORE any collective
+            n_shards = len(expand_shard_patterns(patterns))
+            if n_shards < n:
+                raise ValueError(
+                    f"data_feed: strided needs >= 1 shard per process "
+                    f"({n_shards} shards, {n} processes); re-shard the data "
+                    "or use data_feed: lockstep")
+            return multihost.StridedFeed(ShardBatcher(
+                patterns, batch_size=self.tp.batch_size // n, host_id=p,
+                host_count=n, **common))
+        # lockstep (default): every process materializes IDENTICAL global
+        # batches (same shards, same seed) and keeps its slice
+        batcher = ShardBatcher(patterns, batch_size=self.tp.batch_size,
+                               **common)
+        if n > 1:
+            return multihost.LockstepSlicer(batcher, p, n)
+        return batcher
 
     def _feed(self, arr):
         return torch.as_tensor(arr).to(self.device, non_blocking=True)
@@ -161,6 +205,7 @@ class Trainer:
                 scene_total += int(metrics["scene_total"])
             else:
                 metrics, logits = eval_step(state, images, labels, crop)
+            # in several processes, this rank's share of the batch's loss
             losses.append(float(metrics["val_loss"]))
             if batch.latlng is not None:
                 known = ~np.isnan(batch.latlng[:, 0])
@@ -172,6 +217,13 @@ class Trainer:
                         self._feed(batch.latlng[:, 1]),
                         valid=self._feed(known))
                     gcd.update(counts, total)
+        if self.n_procs > 1:
+            # every rank joins, one without known coordinates too
+            summed = multihost.host_sum(np.array(
+                losses + [scene_correct, scene_total], np.float64))
+            losses = list(summed[:-2])
+            scene_correct, scene_total = int(summed[-2]), int(summed[-1])
+            multihost.merge_gcd_accumulators({"gcd": gcd})
         out = {"val_loss": float(np.mean(losses)) if losses else float("nan")}
         if scene_total:
             out["scene_acc"] = scene_correct / scene_total
@@ -243,7 +295,7 @@ class Trainer:
                 for batch in self._timed(batcher):
                     state, metrics = train_fn(state, batch)
                     step = state.step
-                    images_seen += batch.images.shape[0]
+                    images_seen += batch.images.shape[0] * self.n_procs
                     if step % tp.log_every_steps == 0 or step == total_steps:
                         loss = float(metrics["loss"])
                         dt = time.time() - t0
@@ -253,9 +305,9 @@ class Trainer:
                             f"step {step}/{total_steps} loss {loss:.4f} "
                             f"lr {lr:.5f} {ips:.1f} img/s"
                         )
-                        self.metrics.log(step, {"loss": loss, "lr": lr,
-                                                "images_per_sec": ips},
-                                         prefix="train/")
+                        self._log_metrics(step, {"loss": loss, "lr": lr,
+                                                 "images_per_sec": ips},
+                                          "train/")
                     do_ckpt = (tp.checkpoint_every_steps and
                                step % tp.checkpoint_every_steps == 0)
                     do_val = (tp.val_every_steps and
@@ -267,7 +319,8 @@ class Trainer:
                         self._checkpoint(state, step)
                     elif do_val:
                         self.log(f"val @ {step}: {self.validate(state)}")
-                    if self._interrupted:
+                    # one flag for all ranks, so all checkpoint at this step
+                    if multihost.host_any(self._interrupted):
                         self._checkpoint(state, step, val_metrics={})
                         self.log(f"checkpointed at step {step} after "
                                  "SIGTERM; exiting")
@@ -293,8 +346,10 @@ class Trainer:
             if profiler is not None:
                 profiler.stop()
                 os.makedirs(tp.profile_dir, exist_ok=True)
+                name = ("trace.json" if self.proc_id == 0
+                        else f"trace.rank{self.proc_id}.json")
                 profiler.export_chrome_trace(
-                    os.path.join(tp.profile_dir, "trace.json"))
+                    os.path.join(tp.profile_dir, name))
             if old_handler is not None:
                 try:
                     signal.signal(signal.SIGTERM, old_handler)
@@ -309,7 +364,7 @@ class Trainer:
             if val_metrics:
                 self.log(f"val @ {step}: {val_metrics}")
         if val_metrics:
-            self.metrics.log(step, val_metrics, prefix="val/")
+            self._log_metrics(step, val_metrics, "val/")
         # metric-less saves (no validation ran) are exempt from best-N
         # cleanup -- see CheckpointManager.save
         metrics = (
@@ -323,3 +378,7 @@ class Trainer:
             metrics=metrics,
             config=self.config,
         )
+
+    def _log_metrics(self, step, metrics, prefix):
+        if self.metrics is not None:
+            self.metrics.log(step, metrics, prefix=prefix)

@@ -6,6 +6,13 @@ heads' cross-entropies -> backward -> the optimizer's update, which also
 advances the step. Parameters and gradients stay float32 while the backbone
 computes in its dtype; bf16 needs no loss scaling, and the JAX step has
 none. Metrics stay on the device until the caller reads them.
+
+In several processes (`parallel/multihost.py`) each process steps on its
+rows of the global batch: the BatchNorm statistics and the loss's valid
+counts are the global batch's, the gradients are summed over the ranks
+(one all-reduce of the flattened gradients after the backward) before the
+update, the draws are the global batch's, and the reported metrics are the
+global figures.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ import torch
 from ..ingest.pipeline import center_crop, normalize, train_pipeline
 from ..models.classifier import multi_head_cross_entropy
 from ..models.isn import isn_loss, route_rows
+from ..parallel import multihost
 from .optim import Optimizer
 
 
@@ -33,14 +41,17 @@ class TrainState:
 def _inputs(state, images_u8, seed, crop, augment, crop_scale, draws):
     dtype = state.model.backbone.dtype
     if augment:
+        shard = (multihost.process_index(), multihost.process_count())
         return train_pipeline(images_u8, seed, state.step, crop=crop,
-                              dtype=dtype, crop_scale=crop_scale, draws=draws)
+                              dtype=dtype, crop_scale=crop_scale, draws=draws,
+                              shard=shard)
     return normalize(center_crop(images_u8, crop), dtype)
 
 
 def _update(state, loss):
     state.optimizer.zero_grad()
     loss.backward()
+    multihost.all_reduce_grads(state.optimizer.params)
     state.optimizer.step()
     state.step += 1
 
@@ -49,29 +60,39 @@ def _n_valid(labels):
     return (labels >= 0).all(dim=0).sum()
 
 
+def _metrics(total, parts, labels):
+    """loss, the parts and n_valid, detached and summed over the ranks in
+    one all-reduce (none in one process)."""
+    metrics = {k: v.detach() for k, v in {"loss": total, **parts}.items()}
+    names = sorted(metrics)
+    summed = multihost.device_sum(torch.stack(
+        [metrics[k] for k in names] + [_n_valid(labels).float()]))
+    return {**{k: summed[i] for i, k in enumerate(names)},
+            "n_valid": summed[-1].long()}
+
+
 def train_step(state: TrainState, images_u8, labels, seed: int,
                label_smoothing: float = 0.0, crop: int = 224,
                augment: bool = True, crop_scale=None, draws=None):
     """One optimization step, in place. images_u8: (B, base, base, 3) uint8;
     labels: (P, B) int with -1 = ignore; seed: the run's seed (the draws
     come from it and the step unless `draws` are given, see
-    `ingest.pipeline.crop_draws`). augment=False takes the center crop.
-    Returns (state, metrics): loss, loss_head{i}, n_valid."""
+    `ingest.pipeline.crop_draws`; `draws` are this process's rows).
+    augment=False takes the center crop. Returns (state, metrics): loss,
+    loss_head{i}, n_valid."""
     x = _inputs(state, images_u8, seed, crop, augment, crop_scale, draws)
     total, per_head = multi_head_cross_entropy(
         state.model(x, train=True), labels, label_smoothing=label_smoothing)
     _update(state, total)
-    return state, {
-        "loss": total.detach(),
-        **{f"loss_head{i}": l.detach() for i, l in enumerate(per_head)},
-        "n_valid": _n_valid(labels),
-    }
+    return state, _metrics(total, {f"loss_head{i}": l
+                                   for i, l in enumerate(per_head)}, labels)
 
 
 @torch.no_grad()
 def eval_step(state: TrainState, images_u8, labels, crop: int = 224):
     """Validation loss on center crops, with the running statistics.
-    Returns (metrics, logits)."""
+    Returns (metrics, logits). In several processes each rank's val_loss is
+    its share of the global batch's (the Trainer sums the shares)."""
     x = normalize(center_crop(images_u8, crop), state.model.backbone.dtype)
     logits = state.model(x)
     total, per_head = multi_head_cross_entropy(logits, labels)
@@ -93,12 +114,8 @@ def train_step_isn(state: TrainState, images_u8, labels, scene, seed: int,
                             scene_loss_weight=scene_loss_weight,
                             label_smoothing=label_smoothing)
     _update(state, total)
-    return state, {
-        "loss": total.detach(),
-        "scene_loss": comps["scene_loss"].detach(),
-        "geo_loss": comps["geo_loss"].detach(),
-        "n_valid": _n_valid(labels),
-    }
+    return state, _metrics(total, {"scene_loss": comps["scene_loss"],
+                                   "geo_loss": comps["geo_loss"]}, labels)
 
 
 @torch.no_grad()

@@ -342,19 +342,33 @@ def test_inference_cli_fast_kernel_path_on_cpu(world, tmp_path, tta):
 ])
 def test_cli_refuses_flags_not_ported(world, flags, tmp_path,
                                       jax_pil_decode):
-    """The multi-process flags exit, naming their ROADMAP.md item. The
-    feature-TTA flags, refused here until the TTA variants were ported, do
-    what the JAX CLI does with them on the same checkpoint and images:
-    --feature_tta gives its predicted classes (bf16), and with --precision 8
-    its rows on the same scales (the port's calib_dir cache, which the JAX
-    CLI takes as its own); --feature_tta_level alone changes nothing."""
+    """The multi-process flags, refused here until multi-process eval was
+    ported, are parsed as the JAX CLI parses them: an orphan --num_processes
+    exits with the JAX CLI's message, and --coordinator HOST:PORT without
+    the process flags exits naming them (tests/test_torch_port_multiprocess_
+    eval.py runs the flags in two processes). The feature-TTA flags, refused
+    here until the TTA variants were ported, do what the JAX CLI does with
+    them on the same checkpoint and images: --feature_tta gives its
+    predicted classes (bf16), and with --precision 8 its rows on the same
+    scales (the port's calib_dir cache, which the JAX CLI takes as its
+    own); --feature_tta_level alone changes nothing."""
     from classification.inference import main as jax_main
 
     from geoestimation_tpu_torch.classification.inference import main
 
     common = ["--image_dir", world["images"], "--cpu"] + flags
-    if "--feature_tta" not in flags and "--feature_tta_level" not in flags:
-        with pytest.raises(SystemExit, match="not ported yet"):
+    if "--num_processes" in flags:
+        messages = []
+        for run, ckpt in ((jax_main, world["jax"]), (main, world["port"])):
+            with pytest.raises(SystemExit) as e:
+                run(["--checkpoint", ckpt] + common)
+            messages.append(str(e.value))
+        assert messages[1] == messages[0] == \
+            "--num_processes/--process_id require --coordinator"
+        return
+    if "--coordinator" in flags:
+        with pytest.raises(SystemExit, match="needs --num_processes and "
+                                             "--process_id"):
             main(["--checkpoint", world["port"]] + common)
         return
     int8 = "8" in flags
@@ -406,7 +420,11 @@ def _port_files():
 
 
 def test_port_imports_no_jax_ast():
-    for path in _port_files():
+    files = _port_files()
+    pkg = REPO / "geoestimation_tpu_torch"
+    assert {pkg / "parallel" / "multihost.py",
+            pkg / "parallel" / "mesh.py"} <= set(files)
+    for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]

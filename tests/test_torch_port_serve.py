@@ -313,19 +313,33 @@ def test_module_runs_on_cuda_unless_asked_for_cpu(servers):
 ])
 def test_main_refuses_flags_not_ported(tmp_path, flags, item, request,
                                       monkeypatch, capsys):
-    """--shard_batch exits, naming its ROADMAP.md item. The feature-TTA
-    flags, refused here until the TTA variants were ported, do what the JAX
-    server does with them: --feature_tta at the default --crops 1 exits
-    with its message (the port before loading the checkpoint, the JAX
-    server after); --feature_tta_level alone starts a device-TTA server."""
-    if item == "Multi-process eval and training":
-        with pytest.raises(SystemExit, match=f"not ported yet.*{item}"):
-            port_server.main(["--checkpoint", str(tmp_path / "none"),
-                              "--cpu"] + flags)
-        return
+    """--shard_batch, refused here until multi-process eval was ported:
+    a --batch_size that does not split over the local cards (eight, as the
+    JAX package's test devices) exits with the JAX server's message and
+    code, before the checkpoint load (`test_main_shard_batch_serves` serves
+    with it). The feature-TTA flags, refused here until the TTA variants
+    were ported, do what the JAX server does with them: --feature_tta at
+    the default --crops 1 exits with its message (the port before loading
+    the checkpoint, the JAX server after); --feature_tta_level alone starts
+    a device-TTA server."""
     from geoestimation_tpu.serve import server as jax_server
 
     jax_ckpt = request.getfixturevalue("jax_ckpt")
+    if item == "Multi-process eval and training":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 8)
+        errors = []
+        for main, ckpt in ((jax_server.main, jax_ckpt),
+                           (port_server.main, str(tmp_path / "none"))):
+            capsys.readouterr()
+            with pytest.raises(SystemExit) as e:
+                main(["--checkpoint", ckpt, "--batch_size", "3"] + flags)
+            assert e.value.code == 2
+            errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+        assert errors[1] == errors[0]
+        assert errors[0].endswith("--shard_batch: --batch_size 3 not "
+                                  "divisible by the 8 local devices")
+        return
     port_ckpt = request.getfixturevalue("servers")["ckpt"]
     modes = []
     for mod in (jax_server, port_server):
@@ -366,6 +380,42 @@ def jax_ckpt(geo_parts, tmp_path_factory):
     save_single(str(root / "ckpt"), state, config=config, step=0,
                 metrics={"val_loss": 1.0})
     return str(root / "ckpt")
+
+
+def test_main_shard_batch_needs_cuda_unless_cpu(tmp_path, monkeypatch):
+    """`--shard_batch` without --cpu where CUDA is absent raises before the
+    checkpoint load: it does not shard over the CPU instead."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_server.main(["--checkpoint", str(tmp_path / "none"),
+                          "--shard_batch"])
+
+
+def test_main_shard_batch_serves(servers, monkeypatch, capsys):
+    """`main --shard_batch` on the CPU (one local device): the engine holds
+    the layout, and the answer is `predict_batch`'s."""
+    answers, engines = [], []
+
+    def serve_once(self):
+        self.start_background()
+        answers.append(post(self, jpeg_bytes(7))["predictions"])
+        engines.append(self.engine)
+        self.close()
+
+    monkeypatch.setattr(GeoInferenceServer, "serve_forever", serve_once)
+    port_server.main(["--checkpoint", servers["ckpt"], "--cpu", "--host",
+                      "127.0.0.1", "--port", "0", "--batch_size", "2",
+                      "--shard_batch"])
+    assert "sharding micro-batches over 1 local devices" in \
+        capsys.readouterr().out
+    engine = engines[0]
+    assert engine.layout is not None and engine.layout.n_data == 1
+    images, ok = port_decode.decode_batch([jpeg_bytes(7)] * 2)
+    assert ok.all()
+    want = engine.predict_batch(images)
+    assert answers[0] == {k: {"class": int(c[0]), "lat": float(la[0]),
+                              "lng": float(ln[0])}
+                          for k, (c, la, ln) in want.items()}
 
 
 def test_main_serves_feature_tta(servers, monkeypatch):

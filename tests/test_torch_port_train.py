@@ -33,6 +33,7 @@ from geoestimation_tpu_torch.geo import load_partitionings
 from geoestimation_tpu_torch.ingest import pipeline
 from geoestimation_tpu_torch.models import classifier, isn
 from geoestimation_tpu_torch.models.isn import ISNClassifier
+from geoestimation_tpu_torch.parallel import mesh
 from geoestimation_tpu_torch.tools import world
 from geoestimation_tpu_torch.train import optim, step
 from geoestimation_tpu_torch.train.init import init_weights
@@ -656,10 +657,16 @@ def test_train_base_needs_cuda_unless_cpu(train_world, monkeypatch):
 @pytest.mark.parametrize("flags", [["--coordinator", "localhost:1234"],
                                    ["--num_processes", "2"]])
 def test_train_base_refuses_multi_process_flags(train_world, flags):
+    """Refused here until multi-process training was ported; now an orphan
+    --num_processes exits with the JAX package's message and --coordinator
+    HOST:PORT without the process flags exits naming them
+    (tests/test_torch_port_multiprocess_eval.py trains in two processes)."""
     from geoestimation_tpu_torch.classification import train_base
 
-    with pytest.raises(SystemExit, match="not ported yet.*Multi-process "
-                                         "eval and training"):
+    message = ("--num_processes/--process_id require --coordinator"
+               if "--num_processes" in flags
+               else "needs --num_processes and --process_id")
+    with pytest.raises(SystemExit, match=message):
         train_base.main(["--config", train_world["config"], "--cpu"] + flags)
 
 
@@ -692,10 +699,16 @@ def test_trainer_checkpoints_on_sigterm_and_traces(train_world, tmp_path):
 
 
 def test_trainer_refuses_a_mesh(train_world):
+    """A mesh the processes do not make is refused with `make_mesh`'s
+    message (the data axis is the ranks; here one); the model axis by its
+    ROADMAP.md item."""
     from geoestimation_tpu_torch.train.loop import Trainer
 
     config = load_config(train_world["config"])
     config.train_params.mesh_shape = [2, 1]
-    with pytest.raises(NotImplementedError,
-                       match="Multi-process eval and training"):
+    with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
         Trainer(config, device="cpu")
+    config.train_params.mesh_shape = [1, 1]
+    Trainer(config, search_dirs=[str(train_world["root"])], device="cpu")
+    with pytest.raises(NotImplementedError, match="Model-axis head sharding"):
+        mesh.make_mesh(1, 2, devices=["cpu", "cpu"])
