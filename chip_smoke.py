@@ -113,12 +113,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `predict_batch`'s); the training pair on two cards with NCCL where
      there are two, else the line {"multi_process": {"nccl": "not run: 1
      card"}}. One JSON line {"multi_process": {...}} each;
- 11. one JSON line describing every kernel (with its launches per forward
+ 11. QAT and distillation at full width: `tools.qat_finetune.main` on
+     phase 9's best checkpoint and shard world (batch 64 at 224 px, the
+     checkpoint's train_crop_scale, 6 steps, lr 1e-4, anchor 0.5, 64
+     calibration images, a 32-image parity proxy every 3 steps): every loss
+     finite, no kernel launched by a QAT step (each step timed with the card
+     synchronized); the export's fake-quant forward within 0.02 of each
+     head's logit spread of the int8 network (53 `conv_s8` launches) on
+     phase 3's 8 x 10 crops and scales, its argmax that of the int8 trunk
+     under float32 heads on at least 99% of the rows; the export served by
+     `InferenceEngine(int8=True)` on its `qat` scales (kept from the cache,
+     53 launches, logits equal to the plain int8 network's). Then
+     `tools.tta_distill.main` on phase 10's checkpoint with 16 seeded
+     256-px JPEGs (batch 8, 10 crops, level 3, adam, lr 1e-5, 4 steps):
+     the start's exact KL at most 1e-5, every KL finite, no kernel in a
+     step; the export served with feature TTA at level 3 on the kernels (6
+     `fused_bottleneck` launches; logits within the fast-path gates of the
+     float32 feature-TTA student on the exported weights, the same folded
+     argmax on every image whose float32 margin exceeds 0.2), and in int8
+     on its `distill` scales (53 launches, the plain network's logits).
+     Then `tools.quant_study.main` on the QAT export with phase 10's 64
+     JPEGs (absmax and p999, 10 crops, batch 32): exit 0, flip rates in
+     [0, 1], 53 launches an int8 forward, and at absmax the dynamic int8
+     network equal to its plain twin on one batch. One JSON line each
+     (ms a step, images/s, peak memory, the teacher pass, the wall);
+ 12. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
-(Pillow too, where it is installed, to make and decode JPEGs; phases 9 and
-10 need it).
+(Pillow too, where it is installed, to make and decode JPEGs; phases 9 to
+11 need it).
 """
 
 from __future__ import annotations
@@ -1917,6 +1941,372 @@ def phase_multi(label, tmp, world_yml, config, sd, parts):
     return (*eval_launches, train["kernel_launches_train_steps"])
 
 
+# -- phase 11 ------------------------------------------------------------------
+
+QAT_STEPS, QAT_BATCH = 6, 64
+DISTILL_IMAGES, DISTILL_BATCH, DISTILL_STEPS = 16, 8, 4
+QAT_SPREAD_TOL, QAT_MIN_ARGMAX = 0.02, 0.99  # as tests/test_qat.py:200
+DISTILL_START_KL = 1e-5
+
+
+def _timed_steps(make, record):
+    """Wraps the step factory `make` so that each step it makes is timed
+    with the card synchronized around it and appends (seconds, the kernels'
+    launches during it) to `record`."""
+    def wrapped(*args, **kw):
+        step = make(*args, **kw)
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            before, t0 = _all_launches(), time.perf_counter()
+            out = step(*a, **k)
+            torch.cuda.synchronize()
+            record.append((time.perf_counter() - t0,
+                           tuple(x - y for x, y in
+                                 zip(_all_launches(), before))))
+            return out
+
+        return timed
+
+    return wrapped
+
+
+@contextlib.contextmanager
+def _patched(module, name, value):
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _run_tool(main_fn, argv, module=None, factory=None):
+    """main_fn(argv) with its output kept, each line timestamped; with
+    `factory`, `module.factory`'s steps timed (`_timed_steps`). Returns
+    (rc, [(t, line)], [(seconds, launches)] per step, peak GiB, wall s)."""
+    steps, out = [], _Stamped(sys.stdout)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stack = contextlib.ExitStack()
+    if factory is not None:
+        stack.enter_context(_patched(
+            module, factory, _timed_steps(getattr(module, factory), steps)))
+    t0 = time.perf_counter()
+    with stack, contextlib.redirect_stdout(out):
+        rc = main_fn(argv)
+    torch.cuda.synchronize()
+    return (rc, out.lines, steps,
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            time.perf_counter() - t0)
+
+
+def _numbers_after(lines, prefix, key):
+    """The float after `key` on each line starting with `prefix`."""
+    return [float(line.split(key)[1].split()[0]) for _, line in lines
+            if line.startswith(prefix) and key in line]
+
+
+def _step_figures(name, steps, batch):
+    """ms a step past the first and images/s; fails unless every step
+    launched no kernel."""
+    launches = {l for _, l in steps}
+    if launches != {(0, 0, 0)}:
+        raise RuntimeError(f"{name}: a train step launched kernels "
+                           f"{sorted(launches)}")
+    ms = 1e3 * float(np.mean([t for t, _ in steps[1:]]))
+    return {"ms_per_step_after_step_1": ms, "images_per_s": batch * 1e3 / ms,
+            "steps_timed": len(steps) - 1,
+            "kernel_launches_train_steps": [
+                int(sum(l[k] for _, l in steps)) for k in range(3)]}
+
+
+def _qat_vs_int8(sd, arch, scales, n_classes, x_s8):
+    """The QAT forward (fake_quant=True) against the int8 network on the
+    same crops and scales (53 conv_s8 launches): within QAT_SPREAD_TOL of
+    each head's spread; and the argmax on at least QAT_MIN_ARGMAX of the
+    rows against the int8 trunk under the float32 heads QAT has (the int8
+    network rounds the pooled features to bf16 for its heads, which flips
+    near-ties among thousands of classes on random weights); returns the
+    readings."""
+    from geoestimation_tpu_torch.models import qat
+
+    with torch.no_grad():
+        got = qat.build_qat_apply(arch, scales, n_classes=n_classes)(
+            qat.fold_variables(sd, arch, device="cuda"), x_s8.float())
+    apply8 = quant.build_int8_apply(quant.quantize_model(sd, arch), scales,
+                                    n_classes=n_classes, device="cuda")
+
+    def trunk():
+        x = apply8.stem_fn(x_s8)
+        for block in apply8.block_fns:
+            x = block(x)
+        return x
+
+    x8, launches = _int8_launches(trunk)
+    if launches != INT8_LAUNCHES:
+        raise RuntimeError(f"qat: the int8 network launched conv_s8 "
+                           f"{launches} times, want {INT8_LAUNCHES}")
+    ref = apply8.head_logits(x8)
+    last = quant._block_names(resnet.STAGE_SIZES[arch])[-1][0]
+    feats = (x8.float().sum(dim=(1, 2)) / (x8.shape[1] * x8.shape[2])
+             * float(np.float32(scales[f"{last}_out"])))
+    head = (feats @ sd["heads.fused_head.weight"].to("cuda").t()
+            + sd["heads.fused_head.bias"].to("cuda"))
+    ref32 = torch.split(head, tuple(n_classes), dim=-1)
+    out = []
+    for g, r, r32 in zip(got, ref, ref32):
+        spread = float(r.max() - r.min())
+        dev = float((g - r).abs().max())
+        agree = float((g.argmax(-1) == r32.argmax(-1)).float().mean())
+        out.append({"classes": g.shape[-1], "max_dev_over_spread":
+                    dev / spread, "bit_equal_share":
+                    float((g == r).float().mean()),
+                    "argmax_agreement_float32_heads": agree,
+                    "argmax_agreement_bf16_heads":
+                    float((g.argmax(-1) == r.argmax(-1)).float().mean()),
+                    "max_dev_float32_heads": float((g - r32).abs().max())})
+        if dev >= QAT_SPREAD_TOL * spread or agree < QAT_MIN_ARGMAX:
+            raise RuntimeError(f"qat: the QAT forward leaves the int8 "
+                               f"network's contract: {out[-1]}")
+    return out, launches
+
+
+def _qat(label, tmp, ckpt, images):
+    """a. qat_finetune on phase 9's best checkpoint, its export against the
+    int8 network and through the int8 engine."""
+    from geoestimation_tpu_torch.eval.engine import default_scales_path
+    from geoestimation_tpu_torch.models import qat
+    from geoestimation_tpu_torch.tools import qat_finetune
+
+    out = os.path.join(tmp, "ckpt_qat")
+    rc, lines, steps, peak, wall = _run_tool(qat_finetune.main, [
+        "--checkpoint", ckpt, "--out", out, "--steps", str(QAT_STEPS),
+        "--lr", "1e-4", "--batch_size", str(QAT_BATCH),
+        "--anchor_weight", "0.5", "--calib_images", "64",
+        "--eval_images", "32", "--eval_every", "3", "--log_every", "1"],
+        qat, "make_qat_train_step")
+    losses = _numbers_after(lines, "step ", " loss ")
+    kl0 = _numbers_after(lines, "step    -1", "proxy_kl")
+    exported = [line for _, line in lines
+                if line.startswith("snapshot retention: ")
+                and "proxy" in line and "every" not in line]
+    if rc != 0 or len(losses) != QAT_STEPS or not np.all(
+            np.isfinite(losses)) or len(steps) != QAT_STEPS:
+        raise RuntimeError(f"qat: rc {rc}, losses {losses}, steps "
+                           f"{len(steps)}")
+    figures = _step_figures("qat", steps, QAT_BATCH)
+    config, sd = load_checkpoint(out)
+    with open(default_scales_path(out)) as f:
+        doc = json.load(f)
+    engine = InferenceEngine(config, sd, n_crops=10, int8=True,
+                             int8_scales_path=default_scales_path(out),
+                             search_dirs=[out], device="cuda")
+    n_classes = tuple(len(p) for p in engine.partitionings)
+    x = torch.as_tensor(images, device="cuda")
+    contract, trunk_launches = _qat_vs_int8(
+        sd, config.model_params.arch, doc["scales"], n_classes,
+        eval_pipeline_s8(x))
+    launches = _int8_checks("qat export", engine, None, x,
+                            eval_pipeline_s8(x), len(images))
+    if engine.int8_calib_source != "cache" or \
+            engine.int8_scales != doc["scales"]:
+        raise RuntimeError(f"qat: the engine did not keep the qat scales: "
+                           f"source {engine.int8_calib_source}")
+    line = {"metric": "qat_finetune.main", "steps": QAT_STEPS,
+            "batch": QAT_BATCH, "losses": losses, **figures,
+            "peak_mem_GiB": peak, "wall_s": wall,
+            "proxy_kl_step_minus_1": kl0[0] if kl0 else None,
+            "exported": exported[0] if exported else None,
+            "scales_source": doc["provenance"]["source"],
+            "qat_vs_int8_forward": contract,
+            "int8_network_conv_s8_launches": trunk_launches,
+            "engine_int8_calib_source": engine.int8_calib_source,
+            "engine_conv_s8_launches_per_forward": launches, "card": label}
+    log("qat " + json.dumps(line))
+    return out, launches, figures["kernel_launches_train_steps"]
+
+
+def _distill(label, tmp, mp_ckpt, images):
+    """b. tta_distill on phase 3's world, its export served by feature TTA
+    in bf16 on the kernels and in int8 on its distill scales."""
+    from geoestimation_tpu_torch.eval.engine import default_scales_path
+    from geoestimation_tpu_torch.eval.infer import mean_tta_logits
+    from geoestimation_tpu_torch.models import qat, tta_distill as td
+    from geoestimation_tpu_torch.tools import tta_distill
+
+    folder = os.path.join(tmp, "distill_images")
+    os.makedirs(folder)
+    rng, image_mod = np.random.default_rng(world.SEED + 11), _pillow()
+    for i in range(DISTILL_IMAGES):
+        with open(os.path.join(folder, f"d_{i:02d}.jpg"), "wb") as f:
+            f.write(_jpeg(image_mod, rng.integers(0, 256, (256, 256, 3),
+                                                  np.uint8)))
+    out = os.path.join(tmp, "ckpt_distill")
+    teacher_s = []
+
+    def timed_teacher(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = teacher(*a, **k)
+        torch.cuda.synchronize()
+        teacher_s.append(time.perf_counter() - t0)
+        return lp
+
+    teacher = td.teacher_log_probs
+    with _patched(td, "teacher_log_probs", timed_teacher):
+        rc, lines, steps, peak, wall = _run_tool(tta_distill.main, [
+            "--checkpoint", mp_ckpt, "--image_dir", folder, "--out", out,
+            "--batch_size", str(DISTILL_BATCH), "--images",
+            str(DISTILL_IMAGES), "--crops", "10", "--level", "3",
+            "--optimizer", "adam", "--lr", "1e-5", "--steps",
+            str(DISTILL_STEPS), "--log_every", "2"], td, "make_distill_step")
+    start = _numbers_after(lines, "start", "exact-kl")
+    kls = (_numbers_after(lines, "", "ftta-kl")
+           + _numbers_after(lines, "", "exact-kl"))
+    if rc != 0 or len(steps) != DISTILL_STEPS or not start or \
+            start[0] > DISTILL_START_KL or not np.all(np.isfinite(kls)):
+        raise RuntimeError(f"distill: rc {rc}, start exact-KL {start}, KLs "
+                           f"{kls}, steps {len(steps)}")
+    figures = _step_figures("distill", steps, DISTILL_BATCH)
+
+    config, sd = load_checkpoint(out)
+    arch = config.model_params.arch
+    x = torch.as_tensor(images, device="cuda")
+
+    def engine(**kw):
+        return InferenceEngine(config, sd, n_crops=10, tta_mode="feature",
+                               feature_tta_level=3, search_dirs=[out],
+                               device="cuda", **kw)
+
+    bf16 = engine(use_pallas=True)
+    n_classes = tuple(len(p) for p in bf16.partitionings)
+    preds, (n_fb, n_s2) = _counted(lambda: bf16.predict_batch(images))
+    if (n_fb, n_s2) != WANT_DEFAULT:
+        raise RuntimeError(f"distill: feature TTA launched {(n_fb, n_s2)}, "
+                           f"want {WANT_DEFAULT}")
+    with torch.no_grad():
+        student = td.build_ftta_apply(arch, n_classes, level=3)(
+            qat.fold_variables(sd, arch, device="cuda"), x.float() - 128.0)
+    got = bf16.crop_logits(x)
+    _hold_logits("distill: feature TTA on the kernels vs the folded "
+                 "float32 student", bf16.pred_keys, got, student,
+                 10 * len(images))
+    folded_agree = {}
+    for key, g, r in zip([p.name for p in bf16.partitionings], got,
+                         student):
+        gf, rf = mean_tta_logits(g, 10), mean_tta_logits(r, 10)
+        # predict_batch's classes are its own folded argmax; against the
+        # float32 student, every image whose float32 folded margin exceeds
+        # the fast-path gate's atol (bf16 rounding decides closer ties)
+        if not np.array_equal(
+                preds[key][0], gf.argmax(-1).cpu().numpy()):
+            raise RuntimeError(f"distill: predict_batch's classes are not "
+                               f"its folded argmax on {key}")
+        top2 = rf.topk(2, dim=-1).values
+        decisive = (top2[:, 0] - top2[:, 1]) > FAST_ATOL
+        same = gf.argmax(-1) == rf.argmax(-1)
+        folded_agree[key] = {
+            "same": int(same.sum()), "decisive": int(decisive.sum()),
+            "decisive_same": int((same & decisive).sum()),
+            "max_margin": float((top2[:, 0] - top2[:, 1]).max()),
+            "max_abs_err": float((gf - rf).abs().max())}
+        if not same[decisive].all():
+            raise RuntimeError(f"distill: folded argmax differs on a "
+                               f"decisive image of {key}: {folded_agree}")
+    int8 = engine(int8=True, int8_scales_path=default_scales_path(out))
+    launches8 = _int8_checks("distill export feature TTA", int8, None, x,
+                             shift_s8(x), len(images),
+                             feature_tta={"crop": 224, "n_crops": 10,
+                                          "level": 3})
+    if int8.int8_calib_source != "cache":
+        raise RuntimeError(f"distill: int8 did not keep the distill scales: "
+                           f"{int8.int8_calib_source}")
+    line = {"metric": "tta_distill.main", "steps": DISTILL_STEPS,
+            "batch": DISTILL_BATCH, "images": DISTILL_IMAGES, "crops": 10,
+            "level": 3, "start_exact_kl": start[0], "kls": kls,
+            "teacher_pass_s": float(sum(teacher_s)), **figures,
+            "peak_mem_GiB": peak, "wall_s": wall,
+            "feature_tta_fused_bottleneck_per_forward": n_fb,
+            "folded_argmax": folded_agree,
+            "int8_feature_tta_conv_s8_per_forward": launches8,
+            "int8_calib_source": int8.int8_calib_source, "card": label}
+    log("distill " + json.dumps(line))
+    return n_fb, launches8, figures["kernel_launches_train_steps"]
+
+
+def _study(label, tmp, qat_ckpt, mp_images, mp_meta):
+    """c. quant_study on the QAT export; the dynamic int8 network against
+    its plain twin at absmax on one batch."""
+    from geoestimation_tpu_torch.data.image_folder import iter_image_folder
+    from geoestimation_tpu_torch.tools import quant_study
+
+    json_out = os.path.join(tmp, "study.json")
+    ops8.conv_s8.launches = 0
+    rc, _, _, peak, wall = _run_tool(quant_study.main, [
+        "--checkpoint", qat_ckpt, "--image_dir", mp_images, "--meta",
+        mp_meta, "--stats", "absmax,p999", "--crops", "10",
+        "--batch_size", "32", "--json", json_out])
+    launches = ops8.conv_s8.launches
+    with open(json_out) as f:
+        results = json.load(f)
+    n_batches = -(-results["n_images"] // 32)
+    rates = [r for c in results["configs"].values()
+             for r in c["flip_rates"].values()]
+    if rc != 0 or not rates or not all(0.0 <= r <= 1.0 for r in rates) or \
+            launches != INT8_LAUNCHES * 2 * n_batches:
+        raise RuntimeError(f"quant_study: rc {rc}, flip rates {rates}, "
+                           f"conv_s8 launches {launches} for {n_batches} "
+                           f"batches x 2 settings")
+    config, sd = load_checkpoint(qat_ckpt)
+    arch = config.model_params.arch
+    batch = next(iter(iter_image_folder(mp_images, batch_size=8))).images
+    samples = quant.calibrate_samples(sd, [batch], arch=arch, device="cuda")
+    scales = {k: np.float32(v) for k, v in
+              quant.derive_scales(samples, "absmax").items()}
+    qnet = quant.quantize_model(sd, arch)
+    x = eval_pipeline_s8(torch.as_tensor(batch, device="cuda"))
+    dyn, n = _int8_launches(lambda: quant.build_int8_apply_dynamic(
+        qnet, device="cuda")(x, scales))
+    plain = quant._int8_net(qnet, device="cuda", plain=True)(
+        x, quant._upload(quant._prefold(qnet, scales), "cuda"))
+    if n != INT8_LAUNCHES or not torch.equal(dyn, plain):
+        raise RuntimeError(f"quant_study: the dynamic int8 network launched "
+                           f"{n} times or differs from its plain twin")
+    line = {"metric": "quant_study.main", "images": results["n_images"],
+            "crops": 10, "batch": 32, "settings": sorted(results["configs"]),
+            "conv_s8_launches_per_int8_forward":
+                launches / (2 * n_batches),
+            "flip_rates": {k: c["flip_rates"]
+                           for k, c in results["configs"].items()},
+            "max_abs_gcd_delta_pt": {k: c["max_abs_gcd_delta_pt"]
+                                     for k, c in results["configs"].items()},
+            "wall_s": wall, "peak_mem_GiB": peak, "card": label}
+    log("quant_study " + json.dumps(line))
+    return n
+
+
+def phase_qat_distill(label, tmp):
+    """QAT, distillation and the study (module docs, 11) on phase 9's
+    checkpoint and phase 10's world; returns the launches of each path."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(world.SEED + 1)     # phase 3's images
+    images = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
+    qat_ckpt, qat_int8, qat_steps = _qat(label, tmp,
+                                         os.path.join(tmp, "ckpt"), images)
+    ftta, ftta_int8, distill_steps = _distill(
+        label, tmp, os.path.join(tmp, "mp_ckpt"), images)
+    study = _study(label, tmp, qat_ckpt, os.path.join(tmp, "mp_images"),
+                   os.path.join(tmp, "mp_meta.csv"))
+    log(f"qat and distillation: phase 11 in {time.perf_counter() - t0:.1f} s")
+    return {"qat_export_int8": qat_int8, "quant_study_int8": study,
+            "distilled_feature_tta": ftta,
+            "distilled_feature_tta_int8": ftta_int8,
+            "qat_train_steps": qat_steps,
+            "distill_train_steps": distill_steps}
+
+
 def main():
     t0 = time.perf_counter()
     label, ptxas = phase_device()
@@ -1939,6 +2329,7 @@ def main():
         train_launches, trained, world_yml = phase_train(label, tmp)
         mp, mp8, mp_train = phase_multi(label, tmp, world_yml, config, sd,
                                         parts)
+        qd = phase_qat_distill(label, tmp)
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
@@ -1947,11 +2338,18 @@ def main():
             "train_steps": train_launches[0], "trained_checkpoint": trained,
             **{f"two_process_inference_rank{p}": n
                for p, n in enumerate(mp)},
-            "two_process_train_steps": mp_train[0]},
+            "two_process_train_steps": mp_train[0],
+            "qat_train_steps": qd["qat_train_steps"][0],
+            "distill_train_steps": qd["distill_train_steps"][0],
+            "distilled_feature_tta": qd["distilled_feature_tta"]},
         "fused_bottleneck_s2": {"device_tta_use_pallas_s2":
                                 launches["fused_bottleneck_s2"],
                                 "train_steps": train_launches[1],
-                                "two_process_train_steps": mp_train[1]},
+                                "two_process_train_steps": mp_train[1],
+                                "qat_train_steps":
+                                    qd["qat_train_steps"][1],
+                                "distill_train_steps":
+                                    qd["distill_train_steps"][1]},
         "conv_s8": {"int8": launches["conv_s8"],
                     **{f"int8_feature_tta_l{lv}": tta[f"int8 {lv}"]
                        for lv, _ in FTTA_LEVELS},
@@ -1959,7 +2357,13 @@ def main():
                     "train_steps": train_launches[2],
                     **{f"two_process_int8_rank{p}": n
                        for p, n in enumerate(mp8)},
-                    "two_process_train_steps": mp_train[2]},
+                    "two_process_train_steps": mp_train[2],
+                    "qat_train_steps": qd["qat_train_steps"][2],
+                    "distill_train_steps": qd["distill_train_steps"][2],
+                    "qat_export_int8": qd["qat_export_int8"],
+                    "quant_study_int8": qd["quant_study_int8"],
+                    "distilled_feature_tta_int8":
+                        qd["distilled_feature_tta_int8"]},
     }
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]

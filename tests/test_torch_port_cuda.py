@@ -416,3 +416,83 @@ def test_conv_s8_matches_plain_at_feature_tta_shapes(cuda, label, key):
     torch.cuda.synchronize()
     ref = port_conv.conv_s8_reference(*args, lo=lo, **kw)
     assert torch.equal(got, ref)
+
+
+# -- QAT on the card (cuDNN through autograd; the int8 network on conv_s8) ----
+
+def _qat_world(cuda):
+    from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline_s8
+    from geoestimation_tpu_torch.models import quant
+    from geoestimation_tpu_torch.tools import world
+
+    counts = (40, 120, 360)
+    _, sd, _ = world.build_world(arch="resnet14", counts=counts)
+    images = np.random.default_rng(2).integers(0, 256, (4, 72, 72, 3),
+                                               dtype=np.uint8)
+    scales = quant.calibrate(sd, [images], "resnet14", n_crops=1, crop=64,
+                             device=cuda)
+    x = eval_pipeline_s8(torch.from_numpy(images).to(cuda), n_crops=1,
+                         crop=64)
+    return sd, counts, images, scales, x
+
+
+def test_qat_forward_tracks_the_int8_network_on_the_kernel(cuda):
+    """The fake-quant forward of a resnet14 at 64 px against the int8
+    network on conv_s8 (17 launches), on the same crops and scales: within
+    0.02 of each head's logit spread, the same argmax (the contract of
+    tests/test_qat.py:200)."""
+    from geoestimation_tpu_torch.eval.engine import resolve_device
+    from geoestimation_tpu_torch.models import qat, quant
+
+    resolve_device(cuda)   # TF32 off: the grid decides on float32 values
+    sd, counts, _, scales, x = _qat_world(cuda)
+    with torch.no_grad():
+        got = qat.build_qat_apply("resnet14", scales, n_classes=counts)(
+            qat.fold_variables(sd, "resnet14", device=cuda), x.float())
+    before = port_conv.conv_s8.launches
+    ref = quant.build_int8_apply(quant.quantize_model(sd, "resnet14"),
+                                 scales, n_classes=counts, device=cuda)(x)
+    torch.cuda.synchronize()
+    assert port_conv.conv_s8.launches == before + 17
+    for g, r in zip(got, ref):
+        spread = float(r.max() - r.min())
+        assert float((g - r).abs().max()) < 0.02 * spread
+        assert torch.equal(g.argmax(-1), r.argmax(-1))
+
+
+def test_qat_step_on_the_card_launches_no_kernel(cuda):
+    """One anchored QAT step of a resnet14 at 64 px on the card: a finite
+    loss, every leaf updated, and none of the hand-written kernels
+    launched."""
+    from geoestimation_tpu_torch.eval.engine import resolve_device
+    from geoestimation_tpu_torch.models import qat
+    from geoestimation_tpu_torch.train.optim import (
+        Optimizer,
+        constant_schedule,
+    )
+
+    resolve_device(cuda)
+    sd, counts, images, scales, _ = _qat_world(cuda)
+    folded = qat.fold_variables(sd, "resnet14", device=cuda,
+                                requires_grad=True)
+    leaves = [t for _, t in qat.folded_leaves(folded)]
+    before = [t.detach().clone() for t in leaves]
+    step = qat.make_qat_train_step(
+        qat.build_qat_apply("resnet14", scales, n_classes=counts),
+        Optimizer(leaves, constant_schedule(1e-3), "sgd", momentum=0.9),
+        crop=56, crop_scale=(0.66, 1.0), anchor_weight=0.5,
+        teacher_apply=qat.build_qat_apply("resnet14", scales, counts,
+                                          fake_quant=False),
+        teacher_folded=qat.fold_variables(sd, "resnet14", device=cuda))
+    labels = torch.from_numpy(np.stack(
+        [np.arange(4) % n for n in counts]).astype(np.int32)).to(cuda)
+    counters = (port_fb.fused_bottleneck, port_fb.fused_bottleneck_s2,
+                port_conv.conv_s8)
+    launched = [c.launches for c in counters]
+    m = step(folded, torch.from_numpy(images).to(cuda), labels, 0, 0)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == launched
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["anchor_kl"]))
+    assert sum(not torch.equal(a, b) for a, b in zip(leaves, before)) \
+        > len(leaves) // 2

@@ -489,8 +489,9 @@ def test_build_int8_pipeline_matches_jax(net):
 # -- what the port refuses ---------------------------------------------------
 
 def test_not_ported_options_raise(net, scales, monkeypatch):
-    """QAT and the TPU probe still raise by name. `feature_tta` and ISN
-    heads, refused here until ported, now build as in the JAX package: a
+    """The TPU probe still raises by name. `feature_tta` and ISN heads
+    (and QAT's fake-quant forward, tests/test_torch_port_qat.py), refused
+    here until ported, now build as in the JAX package: a
     feature-TTA forward of the base images, and an ISN net's routed heads
     (tests/test_torch_port_tta.py and test_torch_port_isn.py hold both to
     the JAX package bit for bit)."""
@@ -514,8 +515,6 @@ def test_not_ported_options_raise(net, scales, monkeypatch):
     x = torch.from_numpy(np.array(jax_s8(jnp.asarray(net["images"]),
                                          n_crops=1, crop=CROP)))
     assert [tuple(o.shape) for o in isn(x)] == [(2, n) for n in N_CLASSES]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        pqat.build_qat_apply(ARCH, scales, fake_quant=True)
     monkeypatch.setenv("GEO_REQUANT_PROBE", "trunc")
     with pytest.raises(NotImplementedError, match="GEO_REQUANT_PROBE"):
         pq.build_int8_apply(net["pq"], scales, device="cpu")
