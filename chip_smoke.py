@@ -109,6 +109,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
      holds these gates);
      images/s of both, each rank's peak memory,
      the device group's backend and the gradient all-reduce's ms a step;
+     one process's run once more, held against the first the same way
+     (how far two runs of one process lie apart in bf16 on cuDNN); the
+     model axis: `train_base` in two processes at mesh_shape [1, 2], both
+     ranks on the whole batch, the fused head split over them -- by its
+     features for the published 23,393 classes (odd), by its classes with
+     one more coarse cell (23,394) -- each held to one process at [1, 1]
+     by the same gates, its replicated parameters bit for bit alike on
+     both ranks, each rank's head bytes half the head's (its
+     weight, gradient and momentum; the bias whole where the features
+     split), and the checkpoint the pair writes loading into one
+     process's classifier and equal, leaf for leaf, to the ranks' last
+     states gathered whole (`--planted-faults` also runs both clean
+     model-axis pairs and, in each split, pairs with the data axis's sums
+     -- BatchNorm statistics, valid counts -- over every rank and with the
+     features' gradient not summed or gathered over the model group);
      `serve --shard_batch` over the card's local devices (every answer
      `predict_batch`'s); the training pair on two cards with NCCL where
      there are two, else the line {"multi_process": {"nccl": "not run: 1
@@ -124,25 +139,40 @@ Phases, in order; any failure exits non-zero and prints no result line:
      under float32 heads on at least 99% of the rows; the export served by
      `InferenceEngine(int8=True)` on its `qat` scales (kept from the cache,
      53 launches, logits equal to the plain int8 network's). Then
-     `tools.tta_distill.main` on phase 10's checkpoint with 16 seeded
-     256-px JPEGs (batch 8, 10 crops, level 3, adam, lr 1e-5, 4 steps):
-     the start's exact KL at most 1e-5, every KL finite, no kernel in a
-     step; the export served with feature TTA at level 3 on the kernels (6
+     `tools.tta_distill.main` on phase 10's checkpoint with its heads fit
+     to the three seeded image families of `world.scene_images`
+     (`world.fit_heads`), with 16 256-px JPEGs of those families (batch 8,
+     10 crops, level 3, adam, lr 1e-5, 4 steps): the start's exact KL at
+     most 1e-5, every KL finite, no kernel in a step; the export served
+     with feature TTA at level 3 on the kernels on 8 new family images (6
      `fused_bottleneck` launches; logits within the fast-path gates of the
      float32 feature-TTA student on the exported weights, the same folded
-     argmax on every image whose float32 margin exceeds 0.2), and in int8
-     on its `distill` scales (53 launches, the plain network's logits).
+     argmax on every image whose float32 margin exceeds 0.2, and at least
+     one such image in every head), and in int8 on its `distill` scales
+     (53 launches, the plain network's logits).
      Then `tools.quant_study.main` on the QAT export with phase 10's 64
      JPEGs (absmax and p999, 10 crops, batch 32): exit 0, flip rates in
      [0, 1], 53 launches an int8 forward, and at absmax the dynamic int8
      network equal to its plain twin on one batch. One JSON line each
      (ms a step, images/s, peak memory, the teacher pass, the wall);
- 12. one JSON line describing every kernel (with its launches per forward
+ 12. data preparation to served answers: `geo.create_cells` at the
+     paper's three settings (img_min 50, img_max 5000, 2000, 1000) on 4.7M
+     seeded MP-16-sized coordinates, with the native S2 library and with
+     GEOESTIMATION_NO_NATIVE_S2=1 (the cells and CSVs identical; the
+     seconds of each run and the cell counts); `tools.make_demo_world`
+     (ResNet50, 512 training records, 64 eval images), the two
+     partitioning CLIs on its eval meta CSV (their CSVs those of
+     `create_cells` and `assign_classes`), `train_base` on its config for
+     4 steps on the card (no kernel launched), `classification.inference
+     --fast --pallas` on the checkpoint (6 `fused_bottleneck` launches a
+     forward, a row for every image), and the checkpoint on the fast path
+     against the module path as phase 9 serves its own;
+ 13. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
 (Pillow too, where it is installed, to make and decode JPEGs; phases 9 to
-11 need it).
+12 need it, and pandas, which phase 12's CLIs read CSVs with).
 """
 
 from __future__ import annotations
@@ -1388,11 +1418,37 @@ def _bn_sums_without_gradient_sum(multihost):
     multihost.sum_over_ranks = lambda t: t + (total(t) - t).detach()
 
 
+def _sums_over_every_rank(multihost):
+    group = multihost.device_group
+
+    def device_sum(t):
+        t = t.detach().clone()
+        torch.distributed.all_reduce(t, group=group())
+        return t
+
+    multihost.sum_over_ranks = lambda t: multihost._SumOverRanks.apply(
+        t, group())
+    multihost.device_sum = device_sum
+
+
+def _feature_grad_not_reduced(multihost):
+    multihost.model_copy = lambda x: x
+    multihost.model_slice = lambda x: multihost._own_slice(
+        x, multihost.model_group())
+
+
 # what `--planted-faults` breaks in a training pair's rank processes: the
 # gradient all-reduce; the BatchNorm sums over the ranks; their backward
 FAULTS = {"no_grad_allreduce": _no_grad_allreduce,
           "local_bn_statistics": _local_bn_statistics,
           "bn_sums_without_gradient_sum": _bn_sums_without_gradient_sum}
+# and in a model-axis pair's: the data axis's sums (BatchNorm statistics,
+# valid counts, metrics) over every rank, where model-axis peers hold the
+# same rows (the statistics alone would be exact: their element count is
+# summed with them, PERF.md); the features' gradient not summed (classes
+# split) or gathered (features split) over the model group
+MODEL_FAULTS = {"sums_over_every_rank": _sums_over_every_rank,
+                "feature_grad_not_reduced": _feature_grad_not_reduced}
 
 
 def rank_main(report_path, module, argv, fault=None):
@@ -1401,10 +1457,13 @@ def rank_main(report_path, module, argv, fault=None):
     writes to REPORT what the phase reads: each forward's kernel launches,
     each image's predictions, the int8 calibration's identity, each train
     step's loss, wall, kernel launches and gradient all-reduce ms, the
-    device group's backend and the peak memory. Rank 0 of a training run
-    also saves step 1's batch statistics (recovered from the running
-    statistics) to REPORT.bn.pt and each parameter's update over the run
-    to REPORT.update.pt. `--fault` plants one of FAULTS first."""
+    device group's backend, the peak memory and the fused head's bytes
+    (weight, gradient and momentum of this rank's slice). Rank 0 of a
+    training run also saves step 1's batch statistics (recovered from the
+    running statistics) to REPORT.bn.pt; every rank saves its parameters'
+    update over the run to REPORT.update.pt and its last state (parameters,
+    statistics, momentum) to REPORT.final.pt. `--fault` plants one of
+    FAULTS or MODEL_FAULTS first."""
     import hashlib
     import importlib
 
@@ -1415,7 +1474,7 @@ def rank_main(report_path, module, argv, fault=None):
     report = {"forwards": [], "images": {}, "steps": [], "backend": None}
     current, saved = {}, {}
     if fault is not None:
-        FAULTS[fault](multihost)
+        {**FAULTS, **MODEL_FAULTS}[fault](multihost)
 
     def running(state):
         return {k: v.detach().cpu().clone()
@@ -1479,10 +1538,13 @@ def rank_main(report_path, module, argv, fault=None):
         def timed(state, *a, **k):
             backend()
             rank0 = multihost.process_index() == 0
-            if rank0 and state.step == 0:
+            if state.step == 0:
                 saved["init"] = {k: v.clone()
                                  for k, v in params(state).items()}
                 saved["running"] = running(state)
+                report["head_bytes"] = 3 * 4 * sum(
+                    p.numel() for k, p in state.model.named_parameters()
+                    if "fused_head" in k)
             torch.cuda.synchronize()
             t0, before = time.perf_counter(), _all_launches()
             state, metrics = orig(state, *a, **k)
@@ -1522,9 +1584,16 @@ def rank_main(report_path, module, argv, fault=None):
     importlib.import_module(module).main(argv)
     report["peak_mem_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
     if "init" in saved:
+        state = saved["state"]
         torch.save({k: v - saved["init"][k]
-                    for k, v in params(saved["state"]).items()},
+                    for k, v in params(state).items()},
                    report_path + ".update.pt")
+        names = [k for k, _ in state.model.named_parameters()]
+        torch.save({"model": {k: v.detach().cpu() for k, v in
+                              state.model.state_dict().items()},
+                    "trace": {k: t.detach().cpu() for k, t in zip(
+                        names, state.optimizer.slots["trace"])}},
+                   report_path + ".final.pt")
     with open(report_path, "w") as f:
         json.dump(report, f)
 
@@ -1780,15 +1849,18 @@ def _train_figures(reports, batch):
             "ms_per_step": float(np.mean(step_ms))}
 
 
-def _train_run(ranks, tmp, world_yml, name, n=2, fault=None):
+def _train_run(ranks, tmp, world_yml, name, n=2, fault=None, keep=False):
     """train_base for MP_TRAIN_STEPS steps from the seed in n processes;
-    each rank's report."""
+    each rank's report. The checkpoints (`tmp/ckpt_<name>`) are removed
+    unless `keep`."""
     ckpt = os.path.join(tmp, f"ckpt_{name}")
+    shutil.rmtree(ckpt, ignore_errors=True)
     args = ["--config", world_yml, "--max_steps", str(MP_TRAIN_STEPS),
             "--no_resume", "--checkpoint_dir", ckpt]
     reports, _ = ranks.wait(ranks.start(name, "train_base", args, n=n,
                                         fault=fault))
-    shutil.rmtree(ckpt)
+    if not keep:
+        shutil.rmtree(ckpt)
     return reports
 
 
@@ -1807,23 +1879,41 @@ def _bn_batch_error(got, want):
     return worst
 
 
-def _train_gate(name, pair, single, tmp):
-    """The pair's rank reports against one process's: raises on finite
-    losses, equal on both ranks, and no kernel launched; returns the
-    readings of the three numeric gates and whether all held."""
-    losses = [[s["loss"] for s in r["steps"]] for r in pair + single]
-    launches = [[s["launches"] for s in r["steps"]] for r in pair + single]
-    if (len(losses[0]) != MP_TRAIN_STEPS or losses[0] != losses[1]
-            or not np.isfinite(losses).all() or np.any(launches)):
-        raise RuntimeError(f"multi-process {name}: losses {losses}, "
-                           f"launches {launches}")
-    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses[0], losses[2])]
+def _load_run(tmp, run, what, rank=0):
+    return torch.load(os.path.join(tmp, f"{run}.rank{rank}.json.{what}.pt"))
 
-    def load(run, what):
-        return torch.load(os.path.join(tmp, f"{run}.rank0.json.{what}.pt"))
 
-    bn_err = _bn_batch_error(load(name, "bn"), load(f"{name}1", "bn"))
-    got, want = load(name, "update"), load(f"{name}1", "update")
+def _whole(parts, shapes):
+    """One tensor per name from each rank's `parts` (a list of dicts), as
+    rank 0's checkpoint gathers them: a head slice laid side by side along
+    the dim where it is shorter than `shapes[name]`, any other tensor rank
+    0's. Also returns the largest difference of a replicated tensor between
+    rank 0 and another rank."""
+    out, spread = {}, 0.0
+    for k, shape in shapes.items():
+        ts = [p[k] for p in parts]
+        dims = [d for d in range(ts[0].dim()) if ts[0].shape[d] != shape[d]]
+        if dims:
+            out[k] = torch.cat(ts, dim=dims[0])
+            continue
+        out[k] = ts[0]
+        if ts[0].is_floating_point():
+            spread = max([spread] + [float((t - ts[0]).abs().max())
+                                     for t in ts[1:]])
+    return out, spread
+
+
+def _compare_runs(tmp, got_run, want_run, n_ranks=1):
+    """Rank 0's step-1 batch statistics and the parameters' update over the
+    run of `got_run` (its head updates laid whole from `n_ranks` ranks)
+    against `want_run`'s (one process): the batch statistics' worst error,
+    each parameter's update error (relative, in norm) and each group's."""
+    want = _load_run(tmp, want_run, "update")
+    got, spread = _whole([_load_run(tmp, got_run, "update", r)
+                          for r in range(n_ranks)],
+                         {k: v.shape for k, v in want.items()})
+    bn_err = _bn_batch_error(_load_run(tmp, got_run, "bn"),
+                             _load_run(tmp, want_run, "bn"))
     update_err = {k: float((got[k] - w).norm() / w.norm().clamp_min(1e-30))
                   for k, w in want.items()}
     groups = {}
@@ -1836,18 +1926,41 @@ def _train_gate(name, pair, single, tmp):
                          / torch.cat([want[k].flatten() for k in ks]).norm())
                 for g, ks in groups.items()}
     worst = max(update_err, key=update_err.get)
-    held = (max(loss_err) <= MP_LOSS_RTOL and bn_err <= MP_BN_LIMIT
-            and by_group["heads"] <= MP_UPDATE_RTOL)
-    return {"losses_two_process": losses[0], "losses_one_process": losses[2],
-            "loss_rel_err_by_step": loss_err, "loss_rtol": MP_LOSS_RTOL,
-            "bn_step1_batch_stats_worst": bn_err, "bn_limit": MP_BN_LIMIT,
+    return {"bn_step1_batch_stats_worst": bn_err,
+            "replicas_max_abs_diff": spread,
             "update_rel_err_by_group": by_group,
-            "update_rtol_heads": MP_UPDATE_RTOL,
             "update_rel_err_median": float(np.median(list(
                 update_err.values()))),
             "update_rel_err_worst": update_err[worst],
-            "update_rel_err_worst_parameter": worst, "parameters": len(want),
-            "gates_held": held}
+            "update_rel_err_worst_parameter": worst, "parameters": len(want)}
+
+
+def _train_gate(name, pair, single, tmp, single_name=None,
+                model_axis=False):
+    """The pair's rank reports against one process's (`single_name`,
+    default `<name>1`): raises on finite losses, equal on both ranks, and
+    no kernel launched; returns the readings of the three numeric gates
+    and whether all held. A `model_axis` pair must also hold its
+    replicated parameters bit for bit alike on both ranks (the gradient
+    all-reduce broadcasts them from the model group's first rank)."""
+    losses = [[s["loss"] for s in r["steps"]] for r in pair + single]
+    launches = [[s["launches"] for s in r["steps"]] for r in pair + single]
+    if (len(losses[0]) != MP_TRAIN_STEPS or losses[0] != losses[1]
+            or not np.isfinite(losses).all() or np.any(launches)):
+        raise RuntimeError(f"multi-process {name}: losses {losses}, "
+                           f"launches {launches}")
+    loss_err = [abs(a - b) / abs(b) for a, b in zip(losses[0], losses[2])]
+    readings = _compare_runs(tmp, name, single_name or f"{name}1",
+                             n_ranks=len(pair))
+    held = (max(loss_err) <= MP_LOSS_RTOL
+            and readings["bn_step1_batch_stats_worst"] <= MP_BN_LIMIT
+            and readings["update_rel_err_by_group"]["heads"]
+            <= MP_UPDATE_RTOL
+            and not (model_axis and readings["replicas_max_abs_diff"]))
+    return {"losses_two_process": losses[0], "losses_one_process": losses[2],
+            "loss_rel_err_by_step": loss_err, "loss_rtol": MP_LOSS_RTOL,
+            "bn_limit": MP_BN_LIMIT, "update_rtol_heads": MP_UPDATE_RTOL,
+            **readings, "gates_held": held}
 
 
 def _mp_train(label, ranks, tmp, world_yml, name="train"):
@@ -1875,6 +1988,143 @@ def _mp_train(label, ranks, tmp, world_yml, name="train"):
     if not gate["gates_held"]:
         raise RuntimeError(f"multi-process {name}: the pair is not one "
                            f"process's: {json.dumps(gate)}")
+    return line, single
+
+
+def _mesh_yml(tmp, world_yml, name, mesh_shape, extra_coarse=False):
+    """`world_yml` with `mesh_shape`, written as tmp/<name>.yml; with
+    `extra_coarse`, the coarse partitioning gains one level-6 cell that no
+    record falls in (its class is last, so the labels stay valid): the
+    published 3298 + 7202 + 12893 = 23,393 classes, odd, become 23,394,
+    even."""
+    from geoestimation_tpu_torch.geo import Partitioning, s2
+    from geoestimation_tpu_torch.utils.config import save_config
+
+    config = load_config(world_yml)
+    config.train_params.mesh_shape = list(mesh_shape)
+    if extra_coarse:
+        files = list(config.model_params.partitionings.files)
+        coarse = Partitioning.from_csv(files[0])
+        taken = set(coarse.cell_ids.tolist())
+        rng = np.random.default_rng(world.SEED + 12)
+        cell = next(int(c) for c in s2.cell_id_at_level(
+            rng.uniform(-60, 60, 64), rng.uniform(-180, 180, 64), 6)
+            if int(c) not in taken)
+        lat, lng = s2.cell_id_to_latlng(np.array([cell], np.uint64))
+        files[0] = os.path.join(tmp, f"{name}_coarse.csv")
+        Partitioning(
+            name=coarse.name,
+            tokens=np.append(coarse.tokens, s2.id_to_token(
+                np.array([cell], np.uint64))),
+            lat=np.append(coarse.lat, lat), lng=np.append(coarse.lng, lng),
+            counts=np.append(coarse.counts, 0)).to_csv(files[0])
+        config.model_params.partitionings.files = files
+    path = os.path.join(tmp, f"{name}.yml")
+    save_config(config, path)
+    return path
+
+
+def _ckpt_gate(tmp, name, n_ranks):
+    """The pair's checkpoint (kept under tmp/ckpt_<name>) loads into a
+    one-process classifier and equals, leaf for leaf and bitwise, the
+    ranks' last states laid whole as rank 0 gathers them (the head's and
+    its momentum's slices side by side); returns the head's whole shape."""
+    from geoestimation_tpu_torch.checkpoint import CheckpointManager
+    from geoestimation_tpu_torch.geo import load_partitionings
+    from geoestimation_tpu_torch.models.classifier import (
+        MultiPartitioningClassifier,
+    )
+
+    ckpt = os.path.join(tmp, f"ckpt_{name}")
+    config, sd = load_checkpoint(ckpt)
+    head = sd["heads.fused_head.weight"].shape
+    model = MultiPartitioningClassifier(
+        [len(p) for p in load_partitionings(
+            config.model_params.partitionings.files)],
+        config.model_params.arch)
+    model.load_state_dict(sd)
+    finals = [_load_run(tmp, name, "final", r) for r in range(n_ranks)]
+    got, _ = _whole([f["model"] for f in finals],
+                    {k: v.shape for k, v in sd.items()})
+    restored = CheckpointManager(ckpt, create=False).restore()
+    names = [k for k, _ in model.named_parameters()]
+    want_trace = dict(zip(names, restored["optimizer"]["slots"]["trace"]))
+    trace, _ = _whole([f["trace"] for f in finals],
+                      {k: v.shape for k, v in want_trace.items()})
+    bad = [k for k, v in sd.items() if not torch.equal(got[k], v)] + [
+        f"momentum {k}" for k, v in want_trace.items()
+        if not torch.equal(trace[k], v)]
+    if bad or restored["step"] != MP_TRAIN_STEPS:
+        raise RuntimeError(f"multi-process {name}: the checkpoint (step "
+                           f"{restored['step']}) differs from the ranks' "
+                           f"state gathered whole at {bad[:5]}")
+    shutil.rmtree(ckpt)
+    return tuple(head)
+
+
+def _mp_model_axis(label, ranks, tmp, world_yml, single, name, even):
+    """train_base in two processes at mesh_shape [1, 2] (both ranks on the
+    whole batch, the fused head split over them: its features for the
+    published odd class count, its classes with one more coarse cell)
+    against one process at [1, 1] on the same world and seed (`single`, or
+    run here for the even count); phase 10's gates, each rank's head bytes
+    and peak memory against one process's, and the checkpoint gathered
+    whole. Returns the line."""
+    yml = _mesh_yml(tmp, world_yml, name, (1, 2), extra_coarse=even)
+    single_name = "train1"
+    if even:
+        single_name = f"{name}1"
+        single = _train_run(ranks, tmp, _mesh_yml(
+            tmp, world_yml, single_name, (1, 1), extra_coarse=True),
+            single_name, n=1)
+    pair = _train_run(ranks, tmp, yml, name, keep=True)
+    gate = _train_gate(name, pair, single, tmp, single_name=single_name,
+                       model_axis=True)
+    head = _ckpt_gate(tmp, name, 2)
+    n_total = head[0]
+    line = {
+        "what": f"train_base baseM ResNet50 bf16 at mesh_shape [1, 2]: the "
+                f"fused head {head[0]} x {head[1]} split by "
+                f"{'classes' if n_total % 2 == 0 else 'features'} over two "
+                f"ranks on the whole batch of {TRAIN_BATCH}, against one "
+                f"process, {MP_TRAIN_STEPS} steps", **gate,
+        "head_bytes_by_rank": [r["head_bytes"] for r in pair],
+        "head_bytes_one_process": single[0]["head_bytes"],
+        "peak_mem_GiB_by_rank": [r["peak_mem_GiB"] for r in pair],
+        "peak_mem_GiB_one_process": single[0]["peak_mem_GiB"],
+        "two_process": _train_figures(pair, TRAIN_BATCH),
+        "one_process": _train_figures(single, TRAIN_BATCH),
+        "grad_allreduce_ms_rank0": pair[0].get("allreduce_ms"),
+        "kernel_launches_train_steps": [int(x) for x in np.sum(
+            [[s["launches"] for s in r["steps"]] for r in pair],
+            axis=(0, 1))],
+        "checkpoint_gathered_whole": True, "card": label}
+    _mp_print(name, line)
+    # half the weight a rank, and half the bias or (features split) all
+    want = 12 * (n_total * head[1] // 2
+                 + (n_total if n_total % 2 else n_total // 2))
+    if not gate["gates_held"] or any(r["head_bytes"] != want
+                                     for r in pair):
+        raise RuntimeError(f"multi-process {name}: the model-axis pair is "
+                           f"not one process's: {json.dumps(line)}")
+    return line
+
+
+def _mp_drift(label, ranks, tmp, world_yml):
+    """One process's run of `_mp_train` once more, held against the first
+    the way a pair is (PERF.md §6, the pair's drift): how far two runs of
+    one process on cuDNN in bf16 lie apart."""
+    again = _train_run(ranks, tmp, world_yml, "train1b", n=1)
+    first = [s["loss"] for s in
+             json.load(open(os.path.join(tmp, "train1.rank0.json")))
+             ["steps"]]
+    losses = [s["loss"] for s in again[0]["steps"]]
+    line = {"what": "one process's train_base run twice (6 bf16 steps), "
+                    "the second against the first",
+            "loss_rel_err_by_step": [abs(a - b) / abs(b)
+                                     for a, b in zip(losses, first)],
+            **_compare_runs(tmp, "train1b", "train1"), "card": label}
+    _mp_print("drift_one_process_twice", line)
     return line
 
 
@@ -1929,7 +2179,12 @@ def phase_multi(label, tmp, world_yml, config, sd, parts):
     ranks = _Ranks(tmp)
     try:
         eval_launches = _mp_eval(label, ranks, tmp, config, sd, parts)
-        train = _mp_train(label, ranks, tmp, world_yml)
+        train, single = _mp_train(label, ranks, tmp, world_yml)
+        _mp_drift(label, ranks, tmp, world_yml)
+        model_axis = [_mp_model_axis(label, ranks, tmp, world_yml, single,
+                                     name, even)
+                      for name, even in (("train_model", False),
+                                         ("train_model_even", True))]
         _mp_server(label, os.path.join(tmp, "mp_ckpt"))
         if torch.cuda.device_count() >= 2:
             _mp_train(label, ranks, tmp, world_yml, name="train_nccl")
@@ -1938,7 +2193,9 @@ def phase_multi(label, tmp, world_yml, config, sd, parts):
     finally:
         ranks.close()
     log(f"multi-process: phase 10 in {time.perf_counter() - t0:.1f} s")
-    return (*eval_launches, train["kernel_launches_train_steps"])
+    return (*eval_launches, train["kernel_launches_train_steps"],
+            [int(x) for x in np.sum([m["kernel_launches_train_steps"]
+                                     for m in model_axis], axis=0)])
 
 
 # -- phase 11 ------------------------------------------------------------------
@@ -2127,9 +2384,31 @@ def _qat(label, tmp, ckpt, images):
     return out, launches, figures["kernel_launches_train_steps"]
 
 
-def _distill(label, tmp, mp_ckpt, images):
-    """b. tta_distill on phase 3's world, its export served by feature TTA
-    in bf16 on the kernels and in int8 on its distill scales."""
+def _family_checkpoint(tmp, mp_ckpt, rng):
+    """Phase 10's checkpoint with its heads fit to the three seeded image
+    families of `world.scene_images` (`world.fit_heads`, on the float32
+    module path's features of 12 probe images), so that the families'
+    folded margins are decisive; its path."""
+    from geoestimation_tpu_torch.checkpoint import save_checkpoint
+
+    config, sd = load_checkpoint(mp_ckpt)
+    fp32 = InferenceEngine(config, sd, n_crops=10, dtype=torch.float32,
+                           search_dirs=[mp_ckpt], device="cuda")
+    probe = torch.as_tensor(world.scene_images(rng, 12), device="cuda")
+    with torch.inference_mode():
+        feats = fp32.model.backbone(eval_pipeline(probe,
+                                                  dtype=torch.float32))
+    world.fit_heads(sd, feats, torch.arange(120) // 10 % 3,
+                    [len(p) for p in fp32.partitionings])
+    out = os.path.join(tmp, "ckpt_families")
+    save_checkpoint(out, sd, config)
+    return out
+
+
+def _distill(label, tmp, mp_ckpt):
+    """b. tta_distill on phase 10's world with its heads fit to three image
+    families, its export served by feature TTA in bf16 on the kernels and
+    in int8 on its distill scales, on 8 new images of those families."""
     from geoestimation_tpu_torch.eval.engine import default_scales_path
     from geoestimation_tpu_torch.eval.infer import mean_tta_logits
     from geoestimation_tpu_torch.models import qat, tta_distill as td
@@ -2138,10 +2417,11 @@ def _distill(label, tmp, mp_ckpt, images):
     folder = os.path.join(tmp, "distill_images")
     os.makedirs(folder)
     rng, image_mod = np.random.default_rng(world.SEED + 11), _pillow()
-    for i in range(DISTILL_IMAGES):
+    src = _family_checkpoint(tmp, mp_ckpt, rng)
+    for i, image in enumerate(world.scene_images(rng, DISTILL_IMAGES)):
         with open(os.path.join(folder, f"d_{i:02d}.jpg"), "wb") as f:
-            f.write(_jpeg(image_mod, rng.integers(0, 256, (256, 256, 3),
-                                                  np.uint8)))
+            f.write(_jpeg(image_mod, image))
+    images = world.scene_images(rng, 8)
     out = os.path.join(tmp, "ckpt_distill")
     teacher_s = []
 
@@ -2156,7 +2436,7 @@ def _distill(label, tmp, mp_ckpt, images):
     teacher = td.teacher_log_probs
     with _patched(td, "teacher_log_probs", timed_teacher):
         rc, lines, steps, peak, wall = _run_tool(tta_distill.main, [
-            "--checkpoint", mp_ckpt, "--image_dir", folder, "--out", out,
+            "--checkpoint", src, "--image_dir", folder, "--out", out,
             "--batch_size", str(DISTILL_BATCH), "--images",
             str(DISTILL_IMAGES), "--crops", "10", "--level", "3",
             "--optimizer", "adam", "--lr", "1e-5", "--steps",
@@ -2211,9 +2491,10 @@ def _distill(label, tmp, mp_ckpt, images):
             "decisive_same": int((same & decisive).sum()),
             "max_margin": float((top2[:, 0] - top2[:, 1]).max()),
             "max_abs_err": float((gf - rf).abs().max())}
-        if not same[decisive].all():
+        if not same[decisive].all() or not decisive.any():
             raise RuntimeError(f"distill: folded argmax differs on a "
-                               f"decisive image of {key}: {folded_agree}")
+                               f"decisive image of {key}, or no image is "
+                               f"decisive: {folded_agree}")
     int8 = engine(int8=True, int8_scales_path=default_scales_path(out))
     launches8 = _int8_checks("distill export feature TTA", int8, None, x,
                              shift_s8(x), len(images),
@@ -2296,7 +2577,7 @@ def phase_qat_distill(label, tmp):
     qat_ckpt, qat_int8, qat_steps = _qat(label, tmp,
                                          os.path.join(tmp, "ckpt"), images)
     ftta, ftta_int8, distill_steps = _distill(
-        label, tmp, os.path.join(tmp, "mp_ckpt"), images)
+        label, tmp, os.path.join(tmp, "mp_ckpt"))
     study = _study(label, tmp, qat_ckpt, os.path.join(tmp, "mp_images"),
                    os.path.join(tmp, "mp_meta.csv"))
     log(f"qat and distillation: phase 11 in {time.perf_counter() - t0:.1f} s")
@@ -2305,6 +2586,189 @@ def phase_qat_distill(label, tmp):
             "distilled_feature_tta_int8": ftta_int8,
             "qat_train_steps": qat_steps,
             "distill_train_steps": distill_steps}
+
+
+# -- phase 12 ------------------------------------------------------------------
+
+MP16_POINTS = 4_700_000          # MP-16's photos with coordinates
+# img_min, img_max of the paper's three partitionings (SURVEY.md:52-56)
+CELL_SETTINGS = ((50, 5000), (50, 2000), (50, 1000))
+DEMO_EVAL, DEMO_STEPS = 64, 4
+
+
+def _mp16_coordinates(rng, n=MP16_POINTS):
+    """n seeded photo coordinates: 90% around 3000 centers drawn over the
+    sphere with heavy-tailed (Pareto) weights and spread 0.3 degrees, as
+    photos crowd into cities; 10% uniform over the sphere."""
+    k, background = 3000, n // 10
+    clat = np.degrees(np.arcsin(rng.uniform(-0.9, 0.95, k)))
+    clng = rng.uniform(-180, 180, k)
+    weight = rng.pareto(1.2, k) + 1
+    c = rng.choice(k, n - background, p=weight / weight.sum())
+    lat = np.concatenate([
+        clat[c] + rng.normal(0, 0.3, n - background),
+        np.degrees(np.arcsin(rng.uniform(-1, 1, background)))])
+    lng = np.concatenate([clng[c] + rng.normal(0, 0.3, n - background),
+                          rng.uniform(-180, 180, background)])
+    return np.clip(lat, -90, 90), (lng + 180) % 360 - 180
+
+
+def _cells_at_mp16_scale(label, tmp):
+    """create_cells at the paper's three settings on MP16_POINTS seeded
+    coordinates, with the native S2 library and on numpy
+    (GEOESTIMATION_NO_NATIVE_S2=1): the cells and their CSVs identical;
+    the seconds of each run."""
+    from geoestimation_tpu_torch.geo import create_cells, native, s2
+
+    lat, lng = _mp16_coordinates(np.random.default_rng(world.SEED + 13))
+    if not native.available():
+        raise RuntimeError(f"prep: the native S2 library did not build: "
+                           f"{native.build_error()}")
+    seconds, cells, csvs = {}, {}, {}
+    old = os.environ.pop("GEOESTIMATION_NO_NATIVE_S2", None)
+    try:
+        for backend in ("native", "numpy"):
+            if backend == "numpy":
+                os.environ["GEOESTIMATION_NO_NATIVE_S2"] = "1"
+            if (s2._native() is None) != (backend == "numpy"):
+                raise RuntimeError(f"prep: s2 dispatch is not {backend}")
+            for img_min, img_max in CELL_SETTINGS:
+                t0 = time.perf_counter()
+                res = create_cells(lat, lng, img_min=img_min,
+                                   img_max=img_max)
+                seconds[f"{backend} {img_max}"] = time.perf_counter() - t0
+                path = os.path.join(tmp, f"{backend}_{img_max}.csv")
+                res.partitioning.to_csv(path)
+                with open(path, "rb") as f:
+                    csvs[(backend, img_max)] = f.read()
+                cells[(backend, img_max)] = (
+                    res.partitioning.cell_ids, len(res.partitioning),
+                    res.n_images_kept, res.n_rounds)
+    finally:
+        os.environ.pop("GEOESTIMATION_NO_NATIVE_S2", None)
+        if old is not None:
+            os.environ["GEOESTIMATION_NO_NATIVE_S2"] = old
+    for _, img_max in CELL_SETTINGS:
+        a, b = cells[("native", img_max)], cells[("numpy", img_max)]
+        if not (np.array_equal(a[0], b[0]) and a[1:] == b[1:]
+                and csvs[("native", img_max)] == csvs[("numpy", img_max)]):
+            raise RuntimeError(f"prep: create_cells img_max {img_max} "
+                               f"differs between native and numpy S2")
+    line = {"metric": "create_cells seconds", "points": len(lat),
+            "backend_default": "native", "seconds": seconds,
+            "cells": {f"50_{m}": cells[("native", m)][1]
+                      for _, m in CELL_SETTINGS},
+            "images_kept": {f"50_{m}": cells[("native", m)][2]
+                            for _, m in CELL_SETTINGS},
+            "split_rounds": {f"50_{m}": cells[("native", m)][3]
+                             for _, m in CELL_SETTINGS},
+            "native_equals_numpy": True, "card": label}
+    log("prep cells " + json.dumps(line))
+
+
+def _forward_launches(fn):
+    """fn() with each InferenceEngine forward's kernel launches recorded;
+    (fn(), [(fused_bottleneck, _s2, conv_s8) per forward])."""
+    per = []
+    orig = InferenceEngine._forward
+
+    def counted(self, *a, **k):
+        before = _all_launches()
+        out = orig(self, *a, **k)
+        per.append(tuple(x - y for x, y in zip(_all_launches(), before)))
+        return out
+
+    with _patched(InferenceEngine, "_forward", counted):
+        return fn(), per
+
+
+def phase_prep(label, tmp):
+    """Data preparation to served answers (module docs, 12); returns
+    fused_bottleneck's launches per forward of the inference CLI."""
+    import pandas as pd
+
+    from geoestimation_tpu_torch.classification import inference
+    from geoestimation_tpu_torch.geo import (
+        assign_classes,
+        create_cells,
+        load_partitionings,
+    )
+    from geoestimation_tpu_torch.partitioning import assign_classes as ac
+    from geoestimation_tpu_torch.partitioning import create_cells as cc
+    from geoestimation_tpu_torch.tools import make_demo_world
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _cells_at_mp16_scale(label, tmp)
+    root = os.path.join(tmp, "demo")
+    make_demo_world.main(["--output", root, "--arch", "resnet50",
+                          "--n_eval", str(DEMO_EVAL)])
+    meta = os.path.join(root, "eval_meta.csv")
+    cells_csv, labels_csv = (os.path.join(root, "cells_1_16.csv"),
+                             os.path.join(root, "eval_labels.csv"))
+    cc.main(["--dataset", meta, "--output", cells_csv, "--img_min", "1",
+             "--img_max", "16"])
+    files = [os.path.join(root, "resources", "s2_cells", f"cells_50_{m}.csv")
+             for m in (5000, 2000, 1000)] + [cells_csv]
+    ac.main(["--dataset", meta, "--output", labels_csv, "--cell_files",
+             *files])
+    df = pd.read_csv(meta)
+    res = create_cells(df.LAT.to_numpy(float), df.LON.to_numpy(float),
+                       img_min=1, img_max=16)
+    direct = os.path.join(tmp, "cells_direct.csv")
+    res.partitioning.to_csv(direct)
+    labels = pd.read_csv(labels_csv)
+    want = assign_classes(df.LAT.to_numpy(float), df.LON.to_numpy(float),
+                          load_partitionings(files))
+    with open(cells_csv, "rb") as f, open(direct, "rb") as g:
+        same_cells = f.read() == g.read()
+    if not same_cells or not np.array_equal(
+            labels.iloc[:, 1:].to_numpy().T, want) or (want[-1] < 0).any():
+        raise RuntimeError("prep: the partitioning CLIs' CSVs differ from "
+                           "create_cells / assign_classes, or an eval image "
+                           "lies outside its own cells")
+    ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
+    ops8.conv_s8.launches = 0
+    with contextlib.redirect_stdout(_Stamped(sys.stdout)) as out:
+        trainer = train_base.main(["--config",
+                                   os.path.join(root, "demo.yml"),
+                                   "--max_steps", str(DEMO_STEPS),
+                                   "--no_resume"])
+    # the demo config logs every 5th step and the last
+    logged = {int(line.split()[1].split("/")[0]): float(line.split()[3])
+              for _, line in out.lines if line.startswith("step ")}
+    losses = list(logged.values())
+    ckpt = trainer.tp.checkpoint_dir
+    if _all_launches() != (0, 0, 0) or DEMO_STEPS not in logged or \
+            not np.all(np.isfinite(losses)):
+        raise RuntimeError(f"prep: train_base losses {losses}, launches "
+                           f"{_all_launches()}")
+    del trainer
+    csv = os.path.join(tmp, "demo_preds.csv")
+    _, per = _forward_launches(lambda: inference.main([
+        "--checkpoint", ckpt, "--image_dir", os.path.join(root,
+                                                          "eval_images"),
+        "--output", csv, "--fast", "--pallas"]))
+    preds = pd.read_csv(csv)
+    if not per or set(per) != {(*WANT_DEFAULT, 0)} or \
+            preds.iloc[:, 0].nunique() != DEMO_EVAL or \
+            not np.isfinite(preds.select_dtypes("number").to_numpy()).all():
+        raise RuntimeError(f"prep: inference --fast --pallas launched {per} "
+                           f"a forward; {preds.iloc[:, 0].nunique()} images "
+                           f"in its CSV")
+    served = _serve_trained(ckpt, os.path.join(root, "shards",
+                                               "shard_00000.msgpack"))
+    line = {"metric": "demo world -> partitioning CLIs -> train_base -> "
+                      "inference --fast --pallas",
+            "cells_cli_equals_create_cells": True,
+            "labels_cli_equals_assign_classes": True,
+            "train_losses_logged": logged,
+            "inference_fused_bottleneck_per_forward": [f[0] for f in per],
+            "served_checkpoint_fused_bottleneck_per_forward": served,
+            "rows": len(preds), "wall_s": time.perf_counter() - t0,
+            "card": label}
+    log("prep " + json.dumps(line))
+    return per[0][0]
 
 
 def main():
@@ -2327,9 +2791,10 @@ def main():
     isn = phase_isn(label)
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, trained, world_yml = phase_train(label, tmp)
-        mp, mp8, mp_train = phase_multi(label, tmp, world_yml, config, sd,
-                                        parts)
+        mp, mp8, mp_train, mp_model = phase_multi(label, tmp, world_yml,
+                                                  config, sd, parts)
         qd = phase_qat_distill(label, tmp)
+        demo = phase_prep(label, tmp)
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
@@ -2341,7 +2806,9 @@ def main():
             "two_process_train_steps": mp_train[0],
             "qat_train_steps": qd["qat_train_steps"][0],
             "distill_train_steps": qd["distill_train_steps"][0],
-            "distilled_feature_tta": qd["distilled_feature_tta"]},
+            "distilled_feature_tta": qd["distilled_feature_tta"],
+            "model_axis_train_steps": mp_model[0],
+            "demo_world_inference_cli": demo},
         "fused_bottleneck_s2": {"device_tta_use_pallas_s2":
                                 launches["fused_bottleneck_s2"],
                                 "train_steps": train_launches[1],
@@ -2349,7 +2816,8 @@ def main():
                                 "qat_train_steps":
                                     qd["qat_train_steps"][1],
                                 "distill_train_steps":
-                                    qd["distill_train_steps"][1]},
+                                    qd["distill_train_steps"][1],
+                                "model_axis_train_steps": mp_model[1]},
         "conv_s8": {"int8": launches["conv_s8"],
                     **{f"int8_feature_tta_l{lv}": tta[f"int8 {lv}"]
                        for lv, _ in FTTA_LEVELS},
@@ -2363,7 +2831,8 @@ def main():
                     "qat_export_int8": qd["qat_export_int8"],
                     "quant_study_int8": qd["quant_study_int8"],
                     "distilled_feature_tta_int8":
-                        qd["distilled_feature_tta_int8"]},
+                        qd["distilled_feature_tta_int8"],
+                    "model_axis_train_steps": mp_model[2]},
     }
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
@@ -2379,9 +2848,12 @@ def main():
 def planted_faults():
     """`python3 chip_smoke.py --planted-faults`: phase 10's training gates
     against the faults they are there to catch. On phase 9's world, one
-    process, then a clean pair and a pair with each of FAULTS planted in
-    its ranks; one line of readings each. Fails unless the clean pair holds
-    every gate and each faulty pair fails one."""
+    process, then a clean data-axis pair and a pair with each of FAULTS
+    planted in its ranks, then clean model-axis pairs (mesh_shape [1, 2]:
+    the published head split by its features, and with one more coarse
+    cell by its classes, against a one-process run of its own) and one
+    with each of MODEL_FAULTS; one line of readings each. Fails unless
+    each clean pair holds every gate and each faulty pair fails one."""
     require_cuda("chip_smoke")
     label = card_label()
     log(label)
@@ -2390,24 +2862,37 @@ def planted_faults():
         world_yml = _shard_world(tmp)
         ranks = _Ranks(tmp)
         try:
-            single = _train_run(ranks, tmp, world_yml, "train1", n=1)
             held = {}
-            for fault in (None, *FAULTS):
-                pair = _train_run(ranks, tmp, world_yml, "train",
-                                  fault=fault)
-                gate = _train_gate("train", pair, single, tmp)
-                held[fault] = gate["gates_held"]
-                _mp_print("planted_fault", {"fault": fault, **gate,
-                                            "card": label})
+            for yml, name, single_yml, faults in (
+                    (world_yml, "train", world_yml, FAULTS),
+                    (_mesh_yml(tmp, world_yml, "world_model", (1, 2)),
+                     "train_model", world_yml, MODEL_FAULTS),
+                    (_mesh_yml(tmp, world_yml, "world_classes", (1, 2),
+                               extra_coarse=True), "train_classes",
+                     _mesh_yml(tmp, world_yml, "world_classes1", (1, 1),
+                               extra_coarse=True), MODEL_FAULTS)):
+                single = _train_run(ranks, tmp, single_yml, f"{name}1", n=1)
+                for fault in (None, *faults):
+                    pair = _train_run(ranks, tmp, yml, name, fault=fault)
+                    gate = _train_gate(name, pair, single, tmp,
+                                       model_axis=faults is MODEL_FAULTS)
+                    held[(name, fault)] = gate["gates_held"]
+                    _mp_print("planted_fault", {"pair": name,
+                                                "fault": fault, **gate,
+                                                "card": label})
         finally:
             ranks.close()
     log(f"planted faults in {time.perf_counter() - t0:.1f} s: gates held "
         f"{held}")
-    if not held[None] or any(held[f] for f in FAULTS):
+    clean = [v for (_, f), v in held.items() if f is None]
+    if len(clean) != 3 or not all(clean) or any(
+            v for (_, f), v in held.items() if f is not None):
         raise RuntimeError(f"the training gates did not tell the faults "
-                           f"from the clean pair: held {held}")
+                           f"from the clean pairs: held {held}")
     print(json.dumps({"planted_faults": {
-        "caught": sorted(FAULTS), "clean_pair_held": True}}), flush=True)
+        "caught": sorted(FAULTS) + sorted(MODEL_FAULTS),
+        "pairs": sorted({n for n, _ in held}),
+        "clean_pairs_held": True}}), flush=True)
 
 
 if __name__ == "__main__":

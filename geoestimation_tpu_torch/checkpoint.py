@@ -14,10 +14,13 @@ at its root:
 `load_checkpoint` reads either; from a training directory it takes the best
 step by val_loss, else the latest, as the JAX `load_for_inference` does.
 
-In several processes (`parallel/multihost.py`) every process holds a full
-replica, so process 0 writes its own (the JAX package's `host_local_tree`
-fetch has nothing to gather) and applies the retention, and every process
-waits for it.
+In several processes (`parallel/multihost.py`) process 0 writes and applies
+the retention, and every process waits for it. Every tensor is whole in a
+checkpoint, as the JAX package's orbax checkpoints hold global arrays: a
+replica is written as process 0 holds it, and a fused head split over a
+model axis, with its optimizer slots, is gathered whole first (`whole`, the
+JAX package's `host_local_tree` fetch), so inference, the converters and a
+resume under any layout (`cut`) read it as a one-axis run's.
 """
 
 from __future__ import annotations
@@ -61,6 +64,21 @@ def load_checkpoint(directory: str, hparams_path: Optional[str] = None,
     if step is None:
         step = mgr.best_step() or mgr.latest_step()
     return config, mgr.restore(step)["model"]
+
+
+def whole(tensors: dict, sharded: dict) -> dict:
+    """`tensors` with each entry that `sharded` names (name -> the dim the
+    model axis splits) gathered whole over the model group. Collective:
+    every rank calls it with the same names."""
+    return {k: multihost.gather_model(t, sharded[k]) if k in sharded else t
+            for k, t in tensors.items()}
+
+
+def cut(tensors: dict, sharded: dict, layout) -> dict:
+    """Whole `tensors` with each entry that `sharded` names cut to this
+    rank's slice under `layout` (`parallel.mesh.MeshLayout.shard`)."""
+    return {k: layout.shard(t, sharded[k]).clone() if k in sharded else t
+            for k, t in tensors.items()}
 
 
 def _cpu(tree):

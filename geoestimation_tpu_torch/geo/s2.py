@@ -12,13 +12,17 @@ specification the system uses, as batch operations over numpy arrays --
   * cell id <-> hex token                       (`token_to_id`, `id_to_token`)
 
 Cube-face projection with the quadratic ST<->UV transform, and Hilbert-curve
-position encoding via 4-bit lookup tables.
+position encoding via 4-bit lookup tables. The port's C++ library
+(`native.py`, `cpp/s2geo.cpp`) computes the same leaf ids for large batches
+(see `_native`).
 
 Cell id layout (64 bits): 3 face bits, 2*level Hilbert position bits, one
 trailing '1' sentinel bit marking the level, zero padding below.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -175,8 +179,30 @@ def from_face_ij(face, i, j):
     return n * _U64(2) + _U64(1)
 
 
+_NATIVE_MIN_N = 10_000  # below this, ctypes overhead beats the win
+
+
+def _native():
+    """The C++ library's module where it builds and
+    `GEOESTIMATION_NO_NATIVE_S2` is not 1 (read at each call), else None."""
+    if os.environ.get("GEOESTIMATION_NO_NATIVE_S2") == "1":
+        return None
+    from . import native
+
+    return native if native.available() else None
+
+
 def latlng_to_cell_id(lat_deg, lng_deg):
-    """Degree lat/lng arrays -> level-30 (leaf) S2 cell ids, vectorized."""
+    """Degree lat/lng arrays -> level-30 (leaf) S2 cell ids, vectorized.
+
+    Dispatches to the C++ library for batches of `_NATIVE_MIN_N` points or
+    more where it builds; both paths give identical ids
+    (tests/test_torch_port_partitioning.py).
+    """
+    if np.ndim(lat_deg) and np.size(lat_deg) >= _NATIVE_MIN_N:
+        nat = _native()
+        if nat is not None:
+            return nat.latlng_to_cell_id(lat_deg, lng_deg)
     face, u, v = xyz_to_face_uv(latlng_to_xyz(lat_deg, lng_deg))
     i = st_to_ij(uv_to_st(u))
     j = st_to_ij(uv_to_st(v))

@@ -18,13 +18,12 @@ be built (no compiler, no libjpeg headers) `available()` is False and
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import cxx
 
 SOURCE = Path(__file__).resolve().parent / "cpp" / "ingest.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ingest"
@@ -37,38 +36,18 @@ _TRIED = False
 _ERROR = None
 
 
-def _cxx() -> str:
-    return os.environ.get("CXX") or "g++"
-
-
 def library_path() -> Path:
     """Where the library builds to: keyed on the source, the compiler and
     the flags."""
-    digest = hashlib.sha256(SOURCE.read_bytes())
-    digest.update(" ".join((_cxx(),) + CXXFLAGS + LDFLAGS).encode())
-    return BUILD_DIR / f"libgeoingest-{digest.hexdigest()[:16]}.so"
+    return cxx.library_path(SOURCE, BUILD_DIR, "libgeoingest",
+                            CXXFLAGS + LDFLAGS)
 
 
 def build() -> Path:
     """Compile the library unless it is built; raises RuntimeError with the
     compiler's output if the build fails."""
-    lib = library_path()
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".tmp{os.getpid()}.so")
-    cmd = [_cxx(), *CXXFLAGS, str(SOURCE), *LDFLAGS, "-o", str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"native ingest build failed: {e}") from e
-    if proc.returncode:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"native ingest build failed (exit {proc.returncode}): "
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib
+    return cxx.build(SOURCE, BUILD_DIR, "libgeoingest", CXXFLAGS, LDFLAGS,
+                     "native ingest")
 
 
 def _load():

@@ -17,8 +17,22 @@ of ranks. Two process groups:
 What replaces the JAX package's global arrays: a process feeds its own rows
 as they are (`global_batch_array` has no counterpart), rank 0's state is
 broadcast at the start and after a resume (`broadcast_tensors`, for
-`global_put_tree`), and rank 0 writes checkpoints from its own replica
-(`checkpoint.CheckpointManager`, for `host_local_tree`).
+`global_put_tree`), and rank 0 writes checkpoints (`checkpoint.
+CheckpointManager`, for `host_local_tree`), the fused head gathered first
+where the model axis splits it (`gather_model`).
+
+With a model axis (`mesh.make_mesh(n_data, n_model)`, n_model > 1) rank r
+sits at (r // n_model, r % n_model) and `mesh_groups` forms, on the device
+group's backend, each rank's data group (the ranks of its model index) and
+model group (the ranks of its data index), and with `dcn_data` > 1 the
+inner and outer data groups of a two-level all-reduce. While a layout's
+groups are active (`on_mesh`, which `train.loop.Trainer` enters around its
+work) the data-axis sums (BatchNorm statistics, valid counts, metrics,
+gradients) run over the data group: model-axis peers hold the same rows,
+so a sum over every rank would count them n_model times. The fused head's
+forward calls the model-axis collectives (`model_copy`, `model_gather`,
+`model_slice`, `model_sum`, each an autograd function), and the gradient
+all-reduce hands model-axis peers the same replicated gradients.
 
 Launch, one command per process:
 
@@ -57,6 +71,22 @@ class Runtime:
     backend: str                # the device group's backend
     device: torch.device        # this process's device
     rank_devices: list          # each rank's device, as that rank names it
+    timeout: datetime.timedelta  # a collective's longest wait
+    mesh: Optional["MeshGroups"] = None   # the groups `on_mesh` activated
+    meshes: dict = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class MeshGroups:
+    """This rank's process groups under one (data, model, dcn) layout; a
+    group of one rank is None (its collectives are no-ops)."""
+
+    data_index: int             # this rank's place on the data axis
+    n_data: int
+    data: object                # the ranks of this rank's model index
+    model: object               # the ranks of this rank's data index
+    inner: object = None        # dcn: this rank's slice of its data group
+    outer: object = None        # dcn: its peers in the other slices
 
 
 _runtime: Optional[Runtime] = None
@@ -116,7 +146,8 @@ def initialize(coordinator_address: Optional[str] = None,
     device_group = dist.new_group(backend=backend, timeout=timeout)
     _runtime = Runtime(device_group=device_group, backend=backend,
                        device=device,
-                       rank_devices=[torch.device(d) for _, _, d in idents])
+                       rank_devices=[torch.device(d) for _, _, d in idents],
+                       timeout=timeout)
     if dist.get_rank() == 0:
         why = ("every rank has a card of its own" if backend == "nccl"
                else "on the CPU" if not on_cards
@@ -215,6 +246,95 @@ def device_group():
     return _runtime.device_group
 
 
+def mesh_groups(n_data: int, n_model: int, dcn_data: int = 1) -> MeshGroups:
+    """This rank's groups of the (n_data, n_model) layout, rank r at
+    (r // n_model, r % n_model), with dcn_data slices of consecutive data
+    indices, formed once per shape. Collective: every rank calls it with
+    the same shape (`torch.distributed.new_group` is called for every
+    group, in one order, on every rank). `on_mesh` makes them the ones the
+    collectives use."""
+    key = (n_data, n_model, dcn_data)
+    if key not in _runtime.meshes:
+        _runtime.meshes[key] = _form_groups(*key)
+    return _runtime.meshes[key]
+
+
+@contextlib.contextmanager
+def on_mesh(groups: Optional[MeshGroups]):
+    """Within the block the data-axis sums, the gradient all-reduce and the
+    model-axis collectives run over `groups` (a no-op for None, as in one
+    process); the groups active before are restored after it."""
+    if groups is None:
+        yield
+        return
+    before = _runtime.mesh
+    _runtime.mesh = groups
+    try:
+        yield
+    finally:
+        _runtime.mesh = before
+
+
+def _form_groups(n_data, n_model, dcn_data):
+    me = process_index()
+
+    def group(ranks):
+        ranks = list(ranks)
+        g = dist.new_group(ranks=ranks, backend=_runtime.backend,
+                           timeout=_runtime.timeout)
+        return g if me in ranks and len(ranks) > 1 else None
+
+    def mine(groups):
+        return next((g for g in groups if g is not None), None)
+
+    if n_model == 1:
+        data = _runtime.device_group
+        model = None
+    else:
+        data = mine([group(range(m, n_data * n_model, n_model))
+                     for m in range(n_model)])
+        model = mine([group(range(d * n_model, (d + 1) * n_model))
+                      for d in range(n_data)])
+    inner = outer = None
+    if dcn_data > 1:
+        per = n_data // dcn_data
+        inner = mine([group([(o * per + i) * n_model + m
+                             for i in range(per)])
+                      for m in range(n_model) for o in range(dcn_data)])
+        outer = mine([group([(o * per + i) * n_model + m
+                             for o in range(dcn_data)])
+                      for m in range(n_model) for i in range(per)])
+    return MeshGroups(me // n_model, n_data, data, model, inner, outer)
+
+
+def data_group():
+    """The group the data-axis sums run over: the active layout's data
+    group, else the device group; None in one process (or a data axis of
+    one)."""
+    if _runtime is None or process_count() == 1:
+        return None
+    if _runtime.mesh is not None:
+        return _runtime.mesh.data
+    return _runtime.device_group
+
+
+def data_shard() -> tuple:
+    """(this rank's data index, the data axis's size): the rows of the
+    global batch it feeds. (process_index(), process_count()) without an
+    active layout."""
+    if _runtime is not None and _runtime.mesh is not None:
+        return _runtime.mesh.data_index, _runtime.mesh.n_data
+    return process_index(), process_count()
+
+
+def model_group():
+    """The active layout's model group; None without a model axis (or
+    without an active layout)."""
+    if _runtime is None or _runtime.mesh is None:
+        return None
+    return _runtime.mesh.model
+
+
 # -- collectives --------------------------------------------------------------
 
 def _host_reduce(values, op):
@@ -241,9 +361,9 @@ def host_all(flag: bool) -> bool:
 
 
 def device_sum(t: torch.Tensor) -> torch.Tensor:
-    """Sum of `t` over every rank on the device group, outside autograd;
-    `t` itself in one process."""
-    group = device_group()
+    """Sum of `t` over the data axis (`data_group`), outside autograd; `t`
+    itself in one process."""
+    group = data_group()
     if group is None:
         return t
     t = t.detach().clone()
@@ -270,36 +390,166 @@ class _SumOverRanks(torch.autograd.Function):
 
 
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """Sum of `t` over every rank on the device group, differentiable (the
-    gradient is summed over the ranks); `t` itself in one process."""
-    group = device_group()
+    """Sum of `t` over the data axis (`data_group`), differentiable (the
+    gradient is summed over those ranks); `t` itself in one process."""
+    group = data_group()
     return t if group is None else _SumOverRanks.apply(t, group)
 
 
-def all_reduce_grads(params):
-    """Sum every parameter's gradient over the ranks: one all-reduce of the
-    flattened gradients on the device group (no-op in one process)."""
-    group = device_group()
-    if group is None:
-        return
-    grads = [p.grad for p in params]
+def _through_flat(grads, collective):
+    """Run `collective` on the gradients flattened into one tensor, then
+    copy the result back into each."""
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist.all_reduce(flat, group=group)
+    collective(flat)
     off = 0
     for g in grads:
         g.copy_(flat[off:off + g.numel()].view_as(g))
         off += g.numel()
 
 
-def broadcast_tensors(tensors):
+def all_reduce_grads(params):
+    """Sum every parameter's gradient over the data axis: one all-reduce of
+    the flattened gradients on the data group, or with `dcn_data` > 1 one
+    inside each slice's inner group and then one across the slices (no-op
+    in one process). A head slice's data group holds that slice, so every
+    gradient, sharded or not, is summed the same way. With a model axis the
+    replicated gradients (every parameter not marked `model_split`) are
+    then broadcast from the model group's first rank, so model-axis peers
+    step with the same bits whatever their own backward and sums gave, as
+    the JAX package's mesh holds one value of a replicated leaf."""
+    mesh = _runtime.mesh if _runtime is not None else None
+    groups = ([mesh.inner, mesh.outer] if mesh is not None
+              and (mesh.inner is not None or mesh.outer is not None)
+              else [data_group()])
+    groups = [g for g in groups if g is not None]
+    if groups:
+        def reduce(flat):
+            for group in groups:
+                dist.all_reduce(flat, group=group)
+        _through_flat([p.grad for p in params], reduce)
+    model = model_group()
+    replicated = [p.grad for p in params
+                  if not getattr(p, "model_split", False)]
+    if model is not None and replicated:
+        src = dist.get_global_rank(model, 0)
+        _through_flat(replicated, lambda flat: dist.broadcast(
+            flat, src=src, group=model))
+
+
+# -- the model axis -------------------------------------------------------------
+
+def _gather_last(x, group):
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, dim=-1)
+
+
+def _own_slice(x, group):
+    k = x.shape[-1] // dist.get_world_size(group)
+    return x.narrow(-1, dist.get_rank(group) * k, k)
+
+
+class _ModelCopy(torch.autograd.Function):
+    """y = x on every model rank; the gradient is summed over the model
+    group, since each rank's slice of the head sees x."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ModelGather(torch.autograd.Function):
+    """y = every model rank's x side by side on the last dim; the backward
+    hands each rank its slice (every rank's loss is the same function of
+    y, so each holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _gather_last(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _own_slice(grad, ctx.group).contiguous(), None
+
+
+class _ModelSlice(torch.autograd.Function):
+    """y = this model rank's slice of x's last dim; the backward gathers
+    the slices' gradients, so every rank holds x's whole gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _own_slice(x, group).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_last(grad, ctx.group), None
+
+
+class _ModelSum(torch.autograd.Function):
+    """y = the sum of x over the model group (partial products); the
+    gradient passes as it is (every rank's loss is the same function of
+    y)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _on_model_axis(fn):
+    def apply(x):
+        group = model_group()
+        return x if group is None else fn.apply(x, group)
+    apply.__doc__ = fn.__doc__
+    return apply
+
+
+model_copy = _on_model_axis(_ModelCopy)
+model_gather = _on_model_axis(_ModelGather)
+model_slice = _on_model_axis(_ModelSlice)
+model_sum = _on_model_axis(_ModelSum)
+
+
+def gather_model(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The whole tensor from every model rank's slice along `dim` (outside
+    autograd); `t` itself without a model axis. Collective over the model
+    group."""
+    group = model_group()
+    if group is None:
+        return t
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t.detach().contiguous(), group=group)
+    return torch.cat(parts, dim=dim)
+
+
+def broadcast_tensors(tensors, sharded=()):
     """Overwrite `tensors` on every rank with rank 0's, on the device group:
-    the port's `global_put_tree` (every process holds a full replica, so
-    placing the state is making the replicas equal)."""
+    the port's `global_put_tree` (placing the state is making the replicas
+    equal). `sharded` tensors, each rank's slice of a head, take the slice
+    of the data group's first rank (the same model index) instead."""
     group = device_group()
     if group is None:
         return
     for t in tensors:
         dist.broadcast(t, src=0, group=group)
+    data = data_group()
+    if data is not None:
+        for t in sharded:
+            dist.broadcast(t, src=dist.get_global_rank(data, 0), group=data)
 
 
 def broadcast_object(obj):
@@ -316,8 +566,9 @@ def broadcast_object(obj):
 class LockstepSlicer:
     """Wrap a batcher that yields identical GLOBAL batches on every process
     (same shards, same seed, host_count=1) and emit this process's
-    contiguous slice of each: rows [p*local : (p+1)*local], the layout of
-    `mesh.make_mesh`'s data axis (ranks in order)."""
+    contiguous slice of each: rows [p*local : (p+1)*local], where p is the
+    process's data index and the count the data axis's size (the ranks in
+    order, `mesh.make_mesh`; model-axis peers take the same rows)."""
 
     def __init__(self, batcher, process_id: int, process_count: int):
         if batcher.batch_size % process_count:
@@ -402,11 +653,11 @@ def merge_gcd_accumulators(accs: dict, n_missing: int = 0) -> int:
 
 
 def data_axis_is_process_contiguous(layout) -> bool:
-    """True iff walking the layout's data axis visits processes in
-    non-decreasing, contiguous blocks -- the layout `LockstepSlicer`'s
-    contiguous row slices assume."""
+    """True iff walking the layout's data axis (the first slot of each data
+    index) visits processes in non-decreasing, contiguous blocks -- the
+    layout `LockstepSlicer`'s contiguous row slices assume."""
     seen = []
-    for p in layout.processes:
+    for p in layout.processes[::layout.n_model]:
         if not seen or seen[-1] != p:
             if p in seen:
                 return False

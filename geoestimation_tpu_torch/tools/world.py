@@ -165,6 +165,35 @@ def fit_scene_head(state_dict, feats, scenes, margin=4.0):
     return state_dict
 
 
+def family_classes(n_classes, n_families=3):
+    """The class each image family is fit to in each head (`fit_heads`):
+    family s to class s * (C // n_families) of a head of C classes."""
+    return [[s * (c // n_families) for s in range(n_families)]
+            for c in n_classes]
+
+
+def fit_heads(state_dict, feats, families, n_classes, margin=4.0):
+    """Sets a classifier state dict's fused head so that each family of
+    `scene_images` has a decisive class of its own in every head: in each
+    head, the rows of `family_classes` are the nearest-mean classifier of
+    float32 pooled features `feats` (N, F) labelled `families` (N,), as
+    `fit_scene_head` builds it (`margin` between the closest two family
+    means), and every other row and bias is zero. Returns the state dict."""
+    probe = {"scene_head.weight": None, "scene_head.bias": None}
+    fit_scene_head(probe, feats, families, margin)
+    weight = torch.zeros_like(state_dict["heads.fused_head.weight"])
+    bias = torch.zeros_like(state_dict["heads.fused_head.bias"])
+    offset = 0
+    for c, classes in zip(n_classes, family_classes(n_classes)):
+        for s, k in enumerate(classes):
+            weight[offset + k] = probe["scene_head.weight"][s]
+            bias[offset + k] = probe["scene_head.bias"][s]
+        offset += c
+    state_dict["heads.fused_head.weight"] = weight
+    state_dict["heads.fused_head.bias"] = bias
+    return state_dict
+
+
 def forward(apply, harrays, n_crops=10, crop=224, fold="prob_mean"):
     """uint8 (B, base, base, 3) device tensor -> {p_key: (cls, lat, lng)}
     through `apply`, as `InferenceEngine` runs its fast path."""

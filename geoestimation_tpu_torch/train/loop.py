@@ -7,16 +7,23 @@ the latest checkpoint, a checkpoint on SIGTERM, and an optional
 `torch.profiler` trace (`profile_dir`).
 
 In several processes (`parallel/multihost.py`) every process runs this same
-Trainer on its device, one slot of the data axis each: `data_feed: lockstep`
-slices identical global batches (`LockstepSlicer`), `strided` reads a shard
-subset per process (`StridedFeed`); validation stays lockstep and its sums
-are merged over the ranks; process 0 logs and writes checkpoints. The JAX
-loop acts on each process's own SIGTERM flag; this one agrees the flag over
-the ranks once a step, so every rank checkpoints at the same step.
+Trainer on its device, one slot of the (data, model) layout each
+(`train_params.mesh_shape` [n_data, n_model], default every rank on the
+data axis): `data_feed: lockstep` slices identical global batches by data
+index (`LockstepSlicer`), `strided` reads a shard subset per data index
+(`StridedFeed`); validation stays lockstep and its sums are merged over the
+ranks, model-axis peers counted once; process 0 logs and writes
+checkpoints. With n_model > 1 the fused head and its momentum are cut to
+each rank's slice (`place`, the JAX loop's), and a checkpoint holds them
+whole, gathered over the model group, so it reads as a one-axis run's and
+resumes under any layout. The JAX loop acts on each process's own SIGTERM
+flag; this one agrees the flag over the ranks once a step, so every rank
+checkpoints at the same step.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import signal
 import time
@@ -25,7 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, cut, whole
 from ..data.loader import ShardBatcher, load_label_csv
 from ..data.shards import count_records, expand_shard_patterns
 from ..eval.engine import resolve_device, resolve_partitioning_paths
@@ -46,6 +53,17 @@ from .step import (
 )
 
 
+def _on_layout(method):
+    """Run a Trainer method with its layout's process groups active
+    (`MeshLayout.active`): its collectives sum over the layout's axes, and
+    no other code in the process inherits them."""
+    @functools.wraps(method)
+    def run(self, *args, **kwargs):
+        with self.layout.active():
+            return method(self, *args, **kwargs)
+    return run
+
+
 class Trainer:
     def __init__(self, config, search_dirs=(), log_fn=print, device="cuda"):
         self.config = config
@@ -59,10 +77,14 @@ class Trainer:
         self.proc_id = multihost.process_index()
         self.log = log_fn if self.proc_id == 0 else (lambda *_: None)
         self.device = resolve_device(device)
-        # validates mesh_shape: the data axis is the ranks in order, one
-        # device each (None = all of them); in one process, this device
-        make_mesh(*(tp.mesh_shape or (None,)),
-                  devices=None if self.n_procs > 1 else [self.device])
+        # mesh_shape over the ranks in order, one device each (None = all
+        # on the data axis); in one process, this device
+        self.layout = make_mesh(
+            *(tp.mesh_shape or (None,)),
+            devices=None if self.n_procs > 1 else [self.device])
+        self.data_index = self.layout.data_index
+        self.n_data = self.layout.n_data if self.n_procs > 1 else 1
+        self.sharded = {}         # parameter name -> the model axis's dim
         paths = resolve_partitioning_paths(
             config.model_params.partitionings.files, list(search_dirs))
         self.partitionings = load_partitionings(
@@ -85,24 +107,56 @@ class Trainer:
 
     # -- state --------------------------------------------------------------
 
+    @_on_layout
     def initial_state(self, steps_per_epoch: int) -> TrainState:
         model = init_weights(model_from_config(self.config, self.n_classes),
                              self.tp.seed)
+        if self.layout.n_model > 1 and hasattr(model, "shard_"):
+            # the whole head's placement, then its slice (ISN's heads stay
+            # replicated, as the JAX package's mesh leaves them)
+            self.sharded = {
+                k: d for k, d in self.layout.params(
+                    dict(model.named_parameters())).items() if d is not None}
+            model.shard_(self.layout)
         model = model.to(self.device, memory_format=torch.channels_last)
         optimizer = build_optimizer(model.parameters(), self.tp.optimizer,
                                     self.tp.lr_schedule, steps_per_epoch)
         self.schedule = optimizer.schedule
-        return self._sync(TrainState(model, optimizer))
+        return self.place(TrainState(model, optimizer))
 
-    @staticmethod
-    def _sync(state: TrainState) -> TrainState:
+    def _slot_names(self, state):
+        return [k for k, _ in state.model.named_parameters()]
+
+    @_on_layout
+    def place(self, state: TrainState) -> TrainState:
         """Rank 0's parameters, statistics and optimizer slots on every
-        rank (the JAX loop's `place`; no-op in one process)."""
-        multihost.broadcast_tensors(
-            list(state.model.state_dict().values())
-            + [t for slot in state.optimizer.slots.values() for t in slot])
+        rank, a head slice and its momentum from the first rank of its
+        data group (the JAX loop's `place`; no-op in one process)."""
+        sharded = [t for k, t in state.model.state_dict().items()
+                   if k in self.sharded]
+        replicated = [t for k, t in state.model.state_dict().items()
+                      if k not in self.sharded]
+        for slot in state.optimizer.slots.values():
+            for k, t in zip(self._slot_names(state), slot):
+                (sharded if k in self.sharded else replicated).append(t)
+        multihost.broadcast_tensors(replicated, sharded)
         return state
 
+    @_on_layout
+    def whole_state(self, state: TrainState) -> dict:
+        """{model, optimizer, step} with the head and its slots gathered
+        whole over the model group: a one-axis run's layout. Collective:
+        every rank calls it."""
+        opt = state.optimizer.state_dict()
+        names = self._slot_names(state)
+        return {
+            "model": whole(state.model.state_dict(), self.sharded),
+            "optimizer": {**opt, "slots": {
+                k: list(whole(dict(zip(names, ts)), self.sharded).values())
+                for k, ts in opt["slots"].items()}},
+            "step": state.step}
+
+    @_on_layout
     def maybe_resume(self, state: TrainState) -> TrainState:
         # every rank restores the step process 0 sees as the latest
         latest = multihost.broadcast_object(self.ckpt.latest_step())
@@ -110,10 +164,17 @@ class Trainer:
             return state
         self.log(f"resuming from step {latest}")
         restored = self.ckpt.restore(latest)
-        state.model.load_state_dict(restored["model"])
-        state.optimizer.load_state_dict(restored["optimizer"])
+        names = self._slot_names(state)
+        opt = restored["optimizer"]
+        opt["slots"] = {
+            k: list(cut(dict(zip(names, ts)), self.sharded,
+                        self.layout).values())
+            for k, ts in opt["slots"].items()}
+        state.model.load_state_dict(cut(restored["model"], self.sharded,
+                                        self.layout))
+        state.optimizer.load_state_dict(opt)
         state.step = int(restored["step"])
-        return self._sync(state)
+        return self.place(state)
 
     # -- data ---------------------------------------------------------------
 
@@ -137,11 +198,13 @@ class Trainer:
             # duplicates in val_loss / GCD accuracy
             mask_padding=not shuffle,
         )
-        n, p = self.n_procs, self.proc_id
+        # a data index's rows: model-axis peers read the same ones
+        n, p = self.n_data, self.data_index
         if n > 1 and self.tp.data_feed == "strided" and shuffle:
-            # strided (training feed only): each process reads shards[p::n]
-            # and decodes only its rows; StridedFeed agrees the batch counts
-            # so uneven shard subsets cannot leave a rank in a collective.
+            # strided (training feed only): each data index reads
+            # shards[p::n] and decodes only its rows; StridedFeed agrees the
+            # batch counts over every rank so uneven shard subsets cannot
+            # leave a rank in a collective.
             # Validation stays lockstep: its metrics must match one
             # process's, and a val set may have fewer shards than ranks.
             if self.tp.batch_size % n:
@@ -162,7 +225,7 @@ class Trainer:
         # batches (same shards, same seed) and keeps its slice
         batcher = ShardBatcher(patterns, batch_size=self.tp.batch_size,
                                **common)
-        if n > 1:
+        if self.n_procs > 1:
             return multihost.LockstepSlicer(batcher, p, n)
         return batcher
 
@@ -188,6 +251,7 @@ class Trainer:
 
     # -- validation ---------------------------------------------------------
 
+    @_on_layout
     def validate(self, state: TrainState) -> dict:
         batcher = self._batcher(self.tp.val_shards, self.tp.val_labels,
                                 shuffle=False, seed=0)
@@ -218,7 +282,12 @@ class Trainer:
                         valid=self._feed(known))
                     gcd.update(counts, total)
         if self.n_procs > 1:
-            # every rank joins, one without known coordinates too
+            # every rank joins, one without known coordinates too; a data
+            # index counts once, from its model index 0
+            if self.layout.model_index:
+                losses = [0.0] * len(losses)
+                scene_correct = scene_total = 0
+                gcd = GcdAccumulator()
             summed = multihost.host_sum(np.array(
                 losses + [scene_correct, scene_total], np.float64))
             losses = list(summed[:-2])
@@ -247,6 +316,7 @@ class Trainer:
             state, self._feed(batch.images), self._feed(batch.labels),
             tp.seed, **kw)
 
+    @_on_layout
     def fit(self, max_steps: Optional[int] = None, resume: bool = True):
         tp = self.tp
         steps_per_epoch = tp.steps_per_epoch
@@ -295,7 +365,7 @@ class Trainer:
                 for batch in self._timed(batcher):
                     state, metrics = train_fn(state, batch)
                     step = state.step
-                    images_seen += batch.images.shape[0] * self.n_procs
+                    images_seen += batch.images.shape[0] * self.n_data
                     if step % tp.log_every_steps == 0 or step == total_steps:
                         loss = float(metrics["loss"])
                         dt = time.time() - t0
@@ -371,13 +441,8 @@ class Trainer:
             {"val_loss": val_metrics["val_loss"]}
             if "val_loss" in val_metrics else None
         )
-        self.ckpt.save(
-            step,
-            {"model": state.model.state_dict(),
-             "optimizer": state.optimizer.state_dict(), "step": step},
-            metrics=metrics,
-            config=self.config,
-        )
+        self.ckpt.save(step, self.whole_state(state), metrics=metrics,
+                       config=self.config)
 
     def _log_metrics(self, step, metrics, prefix):
         if self.metrics is not None:

@@ -7,12 +7,14 @@ advances the step. Parameters and gradients stay float32 while the backbone
 computes in its dtype; bf16 needs no loss scaling, and the JAX step has
 none. Metrics stay on the device until the caller reads them.
 
-In several processes (`parallel/multihost.py`) each process steps on its
-rows of the global batch: the BatchNorm statistics and the loss's valid
-counts are the global batch's, the gradients are summed over the ranks
-(one all-reduce of the flattened gradients after the backward) before the
-update, the draws are the global batch's, and the reported metrics are the
-global figures.
+In several processes (`parallel/multihost.py`) each process steps on the
+rows of its data index of the global batch: the BatchNorm statistics and
+the loss's valid counts are the global batch's, the gradients are summed
+over the data axis (one all-reduce of the flattened gradients after the
+backward, two with `dcn_data`) before the update, the draws are the global
+batch's, and the reported metrics are the global figures. With a model
+axis the ranks of one data index step on the same rows, each with its
+slice of the fused head (`models/classifier.py`).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ class TrainState:
 def _inputs(state, images_u8, seed, crop, augment, crop_scale, draws):
     dtype = state.model.backbone.dtype
     if augment:
-        shard = (multihost.process_index(), multihost.process_count())
+        shard = multihost.data_shard()
         return train_pipeline(images_u8, seed, state.step, crop=crop,
                               dtype=dtype, crop_scale=crop_scale, draws=draws,
                               shard=shard)
@@ -61,8 +63,8 @@ def _n_valid(labels):
 
 
 def _metrics(total, parts, labels):
-    """loss, the parts and n_valid, detached and summed over the ranks in
-    one all-reduce (none in one process)."""
+    """loss, the parts and n_valid, detached and summed over the data axis
+    in one all-reduce (none in one process)."""
     metrics = {k: v.detach() for k, v in {"loss": total, **parts}.items()}
     names = sorted(metrics)
     summed = multihost.device_sum(torch.stack(

@@ -218,3 +218,40 @@ def test_export_through_the_feature_tta_forward(tiny):
         gf, wf = mean_tta_logits(g, N_CROPS), mean_tta_logits(w, N_CROPS)
         np.testing.assert_array_equal(gf.argmax(-1).numpy(),
                                       wf.argmax(-1).numpy())
+
+
+def test_fit_heads_gives_each_family_a_decisive_folded_class():
+    """`world.fit_heads` (the distillation world of `chip_smoke.py` phase
+    11) on the float32 features of 12 probe images of three families:
+    through the folded feature-TTA forward, new images of each family take
+    their family's class in every head, by more than the fast path's 0.2."""
+    from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline
+    from geoestimation_tpu_torch.models.classifier import (
+        MultiPartitioningClassifier,
+    )
+    from geoestimation_tpu_torch.tools import world
+
+    n_classes = (30, 61)
+    params, stats = seeded_jax_variables(np.random.default_rng(2), ARCH,
+                                         n_classes)
+    sd = from_jax_variables(params, stats, ARCH, n_classes)
+    model = MultiPartitioningClassifier(n_classes, ARCH, torch.float32)
+    model.load_state_dict(sd)
+    rng = np.random.default_rng(3)
+    probe = torch.as_tensor(world.scene_images(rng, 12, size=64))
+    with torch.no_grad():
+        feats = model.eval().backbone(eval_pipeline(probe, crop=CROP,
+                                                    dtype=torch.float32))
+    world.fit_heads(sd, feats, torch.arange(120) // 10 % 3, n_classes)
+    assert int((sd["heads.fused_head.weight"].abs().sum(1) > 0).sum()) == 6
+    images = world.scene_images(rng, 6, size=64)
+    with torch.no_grad():
+        logits = ptd.build_ftta_apply(ARCH, n_classes, LEVEL, CROP, N_CROPS)(
+            pqat.fold_variables(sd, ARCH),
+            torch.as_tensor(images.astype(np.float32) - 128.0))
+    for head, classes in zip(logits, world.family_classes(n_classes)):
+        folded = mean_tta_logits(head, N_CROPS)
+        top2 = folded.topk(2, dim=-1).values
+        assert folded.argmax(-1).tolist() == [classes[i % 3]
+                                              for i in range(6)]
+        assert bool(((top2[:, 0] - top2[:, 1]) > 0.2).all())

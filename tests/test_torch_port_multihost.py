@@ -118,22 +118,75 @@ def test_coordinator_flags_and_help_match_jax():
 @pytest.mark.parametrize("shape, n_dev", [
     ((3, 1), 2), ((None, 3), 2), ((2, 2), 3), ((4, 1, 3), 4),
 ])
-def test_make_mesh_messages_match_jax(shape, n_dev):
+def test_make_mesh_messages_match_jax(shape, n_dev, monkeypatch):
     """The JAX package's validation, word for word (its checks run before
-    any device is touched, so placeholders stand in for devices)."""
+    any device is touched, so placeholders stand in for devices): over
+    n_dev ranks (rank 0's view), and, without a model axis, over one
+    process's n_dev devices (one process refuses a model axis first,
+    `test_one_process_model_axis_names_the_coordinator`)."""
     args = dict(zip(("n_data", "n_model", "dcn_data"), shape))
     with pytest.raises(ValueError) as ref:
         jax_mesh.make_mesh(devices=[object()] * n_dev, **args)
+    if args.get("n_model", 1) == 1:
+        with pytest.raises(ValueError) as got:
+            mesh.make_mesh(devices=["cpu"] * n_dev, **args)
+        assert str(got.value) == str(ref.value)
+    monkeypatch.setattr(multihost, "process_count", lambda: n_dev)
+    monkeypatch.setattr(multihost, "process_index", lambda: 0)
+    monkeypatch.setattr(multihost, "rank_devices", lambda: ["cpu"] * n_dev)
     with pytest.raises(ValueError) as got:
-        mesh.make_mesh(devices=["cpu"] * n_dev, **args)
+        mesh.make_mesh(**args)
     assert str(got.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("args", [dict(n_data=1, n_model=2),
                                   dict(n_data=2, dcn_data=2)])
-def test_model_axis_and_dcn_raise_by_name(args):
-    with pytest.raises(NotImplementedError, match="Model-axis head sharding"):
-        mesh.make_mesh(devices=["cpu"] * 2, **args)
+def test_model_axis_and_dcn_layouts_match_jax(args, monkeypatch):
+    """Over two ranks (rank 1's view): the slots' coordinates, the groups
+    asked for, and the fused head's placement for an even and an odd class
+    count, against the JAX package's mesh on two of its CPU devices (its
+    (features, classes) kernel is torch's (classes, features) weight
+    transposed)."""
+    asked = []
+    monkeypatch.setattr(multihost, "process_count", lambda: 2)
+    monkeypatch.setattr(multihost, "process_index", lambda: 1)
+    monkeypatch.setattr(multihost, "rank_devices", lambda: ["cpu", "cpu"])
+    monkeypatch.setattr(multihost, "mesh_groups",
+                        lambda *shape: asked.append(shape))
+    layout = mesh.make_mesh(**args)
+    ref = jax_mesh.make_mesh(devices=jax.devices()[:2], **args)
+    assert (layout.n_data, layout.n_model) == (ref.n_data, ref.n_model)
+    assert asked == [(layout.n_data, layout.n_model,
+                      args.get("dcn_data", 1))]
+    assert layout.processes == (0, 1)
+    assert (layout.data_index, layout.model_index) == \
+        divmod(1, layout.n_model)
+    assert multihost.data_axis_is_process_contiguous(layout)
+    # a model axis of one splits nothing: JAX's spec names it, the port
+    # says None
+    torch_dim = ({(None, "model"): 0, ("model", None): 1, ("model",): 0}
+                 if layout.n_model > 1 else {})
+    for n_total in (16, 17):
+        kernel = torch_dim.get(tuple(ref.head_kernel(n_total).spec))
+        bias = torch_dim.get(tuple(ref.head_bias(n_total).spec))
+        assert layout.head_kernel(n_total) == kernel
+        assert layout.head_bias(n_total) == bias
+        assert layout.params({
+            "heads.fused_head.weight": torch.zeros(n_total, 4),
+            "heads.fused_head.bias": torch.zeros(n_total),
+            "backbone.conv1.weight": torch.zeros(2, 3, 7, 7)}) == {
+            "heads.fused_head.weight": kernel, "heads.fused_head.bias": bias,
+            "backbone.conv1.weight": None}
+    if layout.n_model > 1:
+        assert (layout.head_kernel(16), layout.head_kernel(17)) == (0, 1)
+
+
+def test_one_process_model_axis_names_the_coordinator():
+    """One process has no rank for each head slice: a model axis is
+    refused naming --coordinator before the devices are counted."""
+    for n_data, n_model, n_dev in ((1, 2, 2), (None, 3, 2), (2, 2, 3)):
+        with pytest.raises(ValueError, match="--coordinator"):
+            mesh.make_mesh(n_data, n_model, devices=["cpu"] * n_dev)
 
 
 def test_mesh_layout_and_batch_split():

@@ -33,7 +33,6 @@ from geoestimation_tpu_torch.geo import load_partitionings
 from geoestimation_tpu_torch.ingest import pipeline
 from geoestimation_tpu_torch.models import classifier, isn
 from geoestimation_tpu_torch.models.isn import ISNClassifier
-from geoestimation_tpu_torch.parallel import mesh
 from geoestimation_tpu_torch.tools import world
 from geoestimation_tpu_torch.train import optim, step
 from geoestimation_tpu_torch.train.init import init_weights
@@ -700,8 +699,8 @@ def test_trainer_checkpoints_on_sigterm_and_traces(train_world, tmp_path):
 
 def test_trainer_refuses_a_mesh(train_world):
     """A mesh the processes do not make is refused with `make_mesh`'s
-    message (the data axis is the ranks; here one); the model axis by its
-    ROADMAP.md item."""
+    message (the data axis is the ranks; here one); a model axis in one
+    process names --coordinator (a rank holds each slice of the head)."""
     from geoestimation_tpu_torch.train.loop import Trainer
 
     config = load_config(train_world["config"])
@@ -709,6 +708,10 @@ def test_trainer_refuses_a_mesh(train_world):
     with pytest.raises(ValueError, match="mesh 2x1 != 1 devices"):
         Trainer(config, device="cpu")
     config.train_params.mesh_shape = [1, 1]
-    Trainer(config, search_dirs=[str(train_world["root"])], device="cpu")
-    with pytest.raises(NotImplementedError, match="Model-axis head sharding"):
-        mesh.make_mesh(1, 2, devices=["cpu", "cpu"])
+    trainer = Trainer(config, search_dirs=[str(train_world["root"])],
+                      device="cpu")
+    assert (trainer.layout.n_data, trainer.layout.n_model) == (1, 1)
+    assert trainer.sharded == {}
+    config.train_params.mesh_shape = [1, 2]
+    with pytest.raises(ValueError, match="--coordinator"):
+        Trainer(config, device="cpu")
