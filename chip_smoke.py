@@ -3,6 +3,10 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --planted-faults   # phase 10's training gates
                                              # against planted faults
+    python3 chip_smoke.py --phase 10         # phase 10 alone (after the
+                                             # kernel build), on every card
+    python3 chip_smoke.py --phase 13         # phase 13 alone (after the
+                                             # kernel build)
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -167,12 +171,27 @@ Phases, in order; any failure exits non-zero and prints no result line:
      --fast --pallas` on the checkpoint (6 `fused_bottleneck` launches a
      forward, a row for every image), and the checkpoint on the fast path
      against the module path as phase 9 serves its own;
- 13. one JSON line describing every kernel (with its launches per forward
+ 13. the measurement tools, each through its `main` at full width, one
+     line each with the card's name and power limit: `tools.bench_ingest`
+     (256 seeded JPEGs, 3 iterations, each decode backend that builds);
+     `tools.bench_e2e_eval` on 1024 generated JPEGs (one corpus for both
+     runs) through the folder pipeline (ResNet50, ten crops, batch 64),
+     int8 (53 `conv_s8` launches every forward) then bf16 (no kernel
+     launched), its f* answers finite, with the measured window's seconds;
+     `tools.bench_stem` at 640 crops (every stem form bit for bit the
+     shipped one on the card, on `conv_s8` and on the exact library
+     route, at 4 crops and then at 640 on the timed input; one `conv_s8`
+     launch a call of s2d, direct and hfold48, none of hfold24 or the
+     library); `tools.train_roofline` at batch 256
+     (flops and bytes of one step, measured against ideal ms, no kernel
+     launched);
+ 14. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
 (Pillow too, where it is installed, to make and decode JPEGs; phases 9 to
-12 need it, and pandas, which phase 12's CLIs read CSVs with).
+13 need it, and pandas, which phase 12's CLIs read CSVs with and phase
+13's corpus writer imports).
 """
 
 from __future__ import annotations
@@ -1820,8 +1839,9 @@ def _mp_eval(label, ranks, tmp, config, sd, parts):
     launches8 = _launch_gate("int8", i8, "conv_s8", INT8_LAUNCHES)
     _mp_print("eval", {
         "what": "classification.test --fast (bf16, cuDNN route) in two "
-                "processes on one card against one process, "
-                f"{MP_IMAGES} images x 10 crops, batch {MP_BATCH}",
+                f"processes on {min(2, torch.cuda.device_count())} card(s) "
+                f"against one process, {MP_IMAGES} images x 10 crops, batch "
+                f"{MP_BATCH}",
         **table, "inference_parts_equal_single": True,
         "inference_fused_bottleneck_per_forward_by_rank": launches,
         "forwards_by_rank": [len(r["forwards"]) for r in inf],
@@ -2771,6 +2791,152 @@ def phase_prep(label, tmp):
     return per[0][0]
 
 
+# -- phase 13 ------------------------------------------------------------------
+
+INGEST_IMAGES, E2E_IMAGES = 256, 1024
+STEM_CROPS, STEM_ITERS = 640, 10
+ROOFLINE_BATCH, ROOFLINE_ITERS = 256, 10
+
+
+def _zero_launches():
+    ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
+    ops8.conv_s8.launches = 0
+
+
+def _tool_line(tool, line):
+    log("tools " + json.dumps({"tool": tool, **line}))
+
+
+def _e2e_eval(label, precision, corpus):
+    """bench_e2e_eval.main on the E2E_IMAGES JPEGs in `corpus` in
+    `precision`, each forward of its counted; returns the kernels' launches
+    of its forwards, all alike."""
+    from geoestimation_tpu_torch.tools import bench_e2e_eval
+
+    per, answers = [], []
+    build = bench_e2e_eval.build_forward
+
+    def counted_build(*args, **kw):
+        forward = build(*args, **kw)
+
+        def counted(images_u8):
+            before = _all_launches()
+            out = forward(images_u8)
+            per.append(tuple(x - y for x, y in zip(_all_launches(), before)))
+            answers.append(out)
+            return out
+
+        return counted
+
+    _zero_launches()
+    with _patched(bench_e2e_eval, "build_forward", counted_build):
+        result = bench_e2e_eval.main(["--image_dir", corpus,
+                                      "--n_images", str(E2E_IMAGES),
+                                      "--precision", precision])
+    want = (0, 0, INT8_LAUNCHES if precision == "int8" else 0)
+    finite = all(bool(torch.isfinite(lat).all() and torch.isfinite(lng).all())
+                 and cls.shape == (result["batch_size"],)
+                 for cls, lat, lng in answers)
+    numbers = [result[k] for k in (
+        "value", "device_busy_frac", "device_plus_transfer_images_per_sec",
+        "device_resident_images_per_sec",
+        "host_decode_images_per_sec_per_core", "host_cores_per_chip_budget")]
+    if not per or set(per) != {want} or not finite or \
+            result["n_images"] != E2E_IMAGES or \
+            not all(np.isfinite(v) and v > 0 for v in numbers):
+        raise RuntimeError(f"tools: bench_e2e_eval {precision} launched "
+                           f"{sorted(set(per))} a forward (want {want}), "
+                           f"answers finite {finite}: {result}")
+    _tool_line("bench_e2e_eval", {**result, "forwards": len(per),
+                                  "window_s": result["n_images"]
+                                  / result["value"],
+                                  "launches_per_forward": list(per[0]),
+                                  "card": label})
+    return per[0]
+
+
+def _stem(label):
+    """bench_stem.main at STEM_CROPS crops, each call of a form counted;
+    returns conv_s8's launches a call of each form on its kernel route."""
+    from geoestimation_tpu_torch.tools import bench_stem
+
+    calls = {}
+    build = bench_stem.build_variants
+
+    def counted_build(*args, **kw):
+        route = "library" if kw.get("library") else "conv_s8"
+
+        def wrap(name, fn):
+            def run(x_s8):
+                before = _all_launches()
+                out = fn(x_s8)
+                calls.setdefault((route, name), set()).add(tuple(
+                    x - y for x, y in zip(_all_launches(), before)))
+                return out
+
+            run.gemm, run.float32 = fn.gemm, fn.float32
+            return run
+
+        return {name: wrap(name, fn) for name, fn in build(*args,
+                                                           **kw).items()}
+
+    _zero_launches()
+    with _patched(bench_stem, "build_variants", counted_build):
+        lines = bench_stem.main(["--crops", str(STEM_CROPS), "--iters",
+                                 str(STEM_ITERS)])
+    bad = {f"{route} {name}": sorted(seen) for (route, name), seen
+           in calls.items()
+           if seen != {(0, 0, int(route == "conv_s8"
+                                  and name in bench_stem.KERNEL_FORMS))}}
+    timed = [l for l in lines if np.isfinite(l["library_ms"])
+             and (l["conv_s8_ms"] is None or np.isfinite(l["conv_s8_ms"]))
+             and l["bit_identical_at_crops"] == [4, STEM_CROPS]]
+    if bad or len(calls) != 2 * len(bench_stem.FORMS) or \
+            len(timed) != len(bench_stem.FORMS):
+        raise RuntimeError(f"tools: bench_stem launches {bad}, forms called "
+                           f"{sorted(calls)}, lines {lines}")
+    _tool_line("bench_stem", {"crops": STEM_CROPS, "iters": STEM_ITERS,
+                              "bit_identical_on_card_at_crops":
+                                  [4, STEM_CROPS],
+                              "forms": lines, "card": label})
+    return {name: next(iter(calls[("conv_s8", name)]))[2]
+            for name in bench_stem.FORMS}
+
+
+def phase_tools(label):
+    """The measurement tools (module docs, 13); returns conv_s8's launches
+    a forward of bench_e2e_eval's two paths and a call of each stem form."""
+    from geoestimation_tpu_torch.tools import (bench_e2e_eval, bench_ingest,
+                                               train_roofline)
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ingest = bench_ingest.main(["--n", str(INGEST_IMAGES), "--iters", "3"])
+    if not ingest or ingest[-1]["backend"] != "pil+fast":
+        raise RuntimeError(f"tools: bench_ingest ran {ingest}")
+    _tool_line("bench_ingest", {"images": INGEST_IMAGES, "iters": 3,
+                                "backends": ingest, "card": label})
+    with tempfile.TemporaryDirectory(prefix="e2e_corpus_") as corpus:
+        t1 = time.perf_counter()
+        bench_e2e_eval.generate_corpus(corpus, E2E_IMAGES)
+        log(f"tools: generated {E2E_IMAGES} JPEGs in "
+            f"{time.perf_counter() - t1:.1f} s")
+        e2e = {p: _e2e_eval(label, p, corpus) for p in ("int8", "bf16")}
+    stem = _stem(label)
+    _zero_launches()
+    roof = train_roofline.main(["--batch", str(ROOFLINE_BATCH), "--iters",
+                                str(ROOFLINE_ITERS)])
+    if _all_launches() != (0, 0, 0) or not roof["flops"] > 0 or \
+            not roof["bytes_accessed"] > 0 or \
+            not np.isfinite(roof["measured_ms"]):
+        raise RuntimeError(f"tools: train_roofline {roof}, launches "
+                           f"{_all_launches()}")
+    _tool_line("train_roofline", {**roof, "launches": list(_all_launches()),
+                                  "card": label})
+    log(f"tools: phase 13 in {time.perf_counter() - t0:.1f} s")
+    return e2e, stem
+
+
 def main():
     t0 = time.perf_counter()
     label, ptxas = phase_device()
@@ -2795,6 +2961,7 @@ def main():
                                                   config, sd, parts)
         qd = phase_qat_distill(label, tmp)
         demo = phase_prep(label, tmp)
+    e2e, stem = phase_tools(label)
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
@@ -2808,7 +2975,9 @@ def main():
             "distill_train_steps": qd["distill_train_steps"][0],
             "distilled_feature_tta": qd["distilled_feature_tta"],
             "model_axis_train_steps": mp_model[0],
-            "demo_world_inference_cli": demo},
+            "demo_world_inference_cli": demo,
+            "bench_e2e_eval_int8": e2e["int8"][0],
+            "bench_e2e_eval_bf16": e2e["bf16"][0]},
         "fused_bottleneck_s2": {"device_tta_use_pallas_s2":
                                 launches["fused_bottleneck_s2"],
                                 "train_steps": train_launches[1],
@@ -2817,7 +2986,9 @@ def main():
                                     qd["qat_train_steps"][1],
                                 "distill_train_steps":
                                     qd["distill_train_steps"][1],
-                                "model_axis_train_steps": mp_model[1]},
+                                "model_axis_train_steps": mp_model[1],
+                                "bench_e2e_eval_int8": e2e["int8"][1],
+                                "bench_e2e_eval_bf16": e2e["bf16"][1]},
         "conv_s8": {"int8": launches["conv_s8"],
                     **{f"int8_feature_tta_l{lv}": tta[f"int8 {lv}"]
                        for lv, _ in FTTA_LEVELS},
@@ -2832,7 +3003,10 @@ def main():
                     "quant_study_int8": qd["quant_study_int8"],
                     "distilled_feature_tta_int8":
                         qd["distilled_feature_tta_int8"],
-                    "model_axis_train_steps": mp_model[2]},
+                    "model_axis_train_steps": mp_model[2],
+                    "bench_e2e_eval_int8": e2e["int8"][2],
+                    "bench_e2e_eval_bf16": e2e["bf16"][2],
+                    **{f"bench_stem_{form}": n for form, n in stem.items()}},
     }
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
@@ -2895,6 +3069,35 @@ def planted_faults():
         "clean_pairs_held": True}}), flush=True)
 
 
+def phase_10_alone():
+    """`python3 chip_smoke.py --phase 10`: phase 1's build, then phase 10
+    on phase 3's world and phase 9's shard world, on every card there is
+    (with two or more, each rank on a card of its own and the device group
+    NCCL); one line of its wall and backend after phase 10's own lines."""
+    label, _ = phase_device()
+    t0 = time.perf_counter()
+    config, sd, parts = world.build_world()
+    with tempfile.TemporaryDirectory() as tmp:
+        world_yml = _shard_world(tmp)
+        phase_multi(label, tmp, world_yml, config, sd, parts)
+    print(json.dumps({"phase_10": {
+        "ok": True, "cards": torch.cuda.device_count(),
+        "wall_s": time.perf_counter() - t0, "card": label}}), flush=True)
+
+
+def phase_13_alone():
+    """`python3 chip_smoke.py --phase 13`: phase 1's build, then phase 13;
+    one line of its launches and wall after phase 13's own lines."""
+    label, _ = phase_device()
+    t0 = time.perf_counter()
+    e2e, stem = phase_tools(label)
+    print(json.dumps({"phase_13": {
+        "ok": True, "conv_s8_bench_e2e_eval_int8": e2e["int8"][2],
+        "conv_s8_bench_e2e_eval_bf16": e2e["bf16"][2],
+        **{f"conv_s8_bench_stem_{form}": n for form, n in stem.items()},
+        "wall_s": time.perf_counter() - t0, "card": label}}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         fault, rest = None, sys.argv[3:]
@@ -2903,5 +3106,9 @@ if __name__ == "__main__":
         rank_main(sys.argv[2], rest[0], rest[1:], fault)
     elif sys.argv[1:] == ["--planted-faults"]:
         planted_faults()
+    elif sys.argv[1:] == ["--phase", "10"]:
+        phase_10_alone()
+    elif sys.argv[1:] == ["--phase", "13"]:
+        phase_13_alone()
     else:
         main()

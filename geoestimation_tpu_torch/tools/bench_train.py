@@ -30,10 +30,10 @@ BASE = 256
 
 
 def setup(batch, arch="resnet50", remat=False, device="cuda", seed=0,
-          n_classes=REAL_CLASS_COUNTS, crop=224):
-    """(state, images, labels, step) for `batch` seeded uint8 images and
-    labels on `device`; step() runs one train step and returns its
-    metrics."""
+          n_classes=REAL_CLASS_COUNTS, crop=224, base=BASE):
+    """(state, images, labels, step) for `batch` seeded uint8 `base`-px
+    images and labels on `device`; step() runs one train step and returns
+    its metrics."""
     device = resolve_device(device)
     model = init_weights(MultiPartitioningClassifier(
         n_classes, arch, torch.bfloat16, remat=remat), seed)
@@ -42,7 +42,7 @@ def setup(batch, arch="resnet50", remat=False, device="cuda", seed=0,
                                         constant_schedule(0.01),
                                         momentum=0.9))
     gen = torch.Generator().manual_seed(seed)
-    images = torch.randint(0, 256, (batch, BASE, BASE, 3), dtype=torch.uint8,
+    images = torch.randint(0, 256, (batch, base, base, 3), dtype=torch.uint8,
                            generator=gen).to(device)
     labels = torch.stack([torch.randint(0, n, (batch,), generator=gen)
                           for n in n_classes]).to(device)
