@@ -1,0 +1,13 @@
+"""The share of the traced window in which no operation ran on the card
+(kernels, copies and fills; their intervals merged), in the training cell.
+Moves `train_images_per_s`."""
+
+LAYER = "device"
+SOURCE = "device_trace"
+
+
+def read(obs):
+    trace = obs["trace"]
+    if trace is None or trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
