@@ -36,6 +36,7 @@ from ..ingest.pipeline import (
     shift_s8,
 )
 from ..train.init import model_from_config
+from ..utils.spans import count, span
 from .infer import TTA_FOLDS, HierarchyArrays, mean_tta_logits, predict_all
 from .metrics import DEFAULT_THRESHOLDS_KM, GcdAccumulator, gcd_threshold_counts
 
@@ -168,6 +169,7 @@ class InferenceEngine:
         self.devices = [resolve_device(d) for d in devices]
         self.device = self.devices[0]
         self.layout = layout
+        self._calls = 0   # predict_batch calls: the request id of its spans
         if partitionings is None:
             paths = resolve_partitioning_paths(mp.partitionings.files,
                                                search_dirs)
@@ -459,7 +461,8 @@ class InferenceEngine:
         feature = self.tta_mode == "feature"
         if self._int8:
             if self._int8_apply is None:
-                self._build_int8(images_u8.cpu().numpy())
+                with span("engine.calibrate"):
+                    self._build_int8(images_u8.cpu().numpy())
             if feature:
                 # the base image: the crops are taken at a feature map
                 x = shift_s8(images_u8)
@@ -482,9 +485,10 @@ class InferenceEngine:
 
     @torch.inference_mode()
     def _forward(self, images_u8, replica=0):
-        logits = [mean_tta_logits(l, self.n_crops, fold=self.tta_fold)
-                  for l in self.crop_logits(images_u8, replica)]
-        return self._pack(predict_all(logits, self._harrays[replica]))
+        with span("models.forward", device=True):
+            logits = [mean_tta_logits(l, self.n_crops, fold=self.tta_fold)
+                      for l in self.crop_logits(images_u8, replica)]
+            return self._pack(predict_all(logits, self._harrays[replica]))
 
     @staticmethod
     def _pack(preds):
@@ -506,22 +510,31 @@ class InferenceEngine:
         """uint8 (B, base, base, 3), or (B, 10, crop, crop, 3) host crops
         -> {p_key: (cls, lat, lng)} numpy."""
         images_u8 = np.asarray(images_u8)
-        if self._int8 and self._int8_apply is None:
-            self._build_int8(images_u8)
-        if self.layout is None:
-            flat = self._forward(torch.as_tensor(images_u8).to(self.device))
-            flat = flat.cpu().numpy()
-        else:
-            from ..parallel.mesh import shard_batch_arrays
+        self._calls += 1
+        with span("engine.predict_batch", request=self._calls):
+            if self._int8 and self._int8_apply is None:
+                with span("engine.calibrate"):
+                    self._build_int8(images_u8)
+            count("engine.upload_bytes", images_u8.nbytes)
+            if self.layout is None:
+                with span("engine.upload", device=True):
+                    x = torch.as_tensor(images_u8).to(self.device)
+                flat = self._forward(x)
+                with span("engine.wait"):
+                    flat = flat.cpu().numpy()
+            else:
+                from ..parallel.mesh import shard_batch_arrays
 
-            # every part is launched before the first transfer waits for it
-            parts = [self._forward(x, r) for r, x in enumerate(
-                shard_batch_arrays(self.layout, images_u8))]
-            flat = torch.cat([p.cpu() for p in parts], dim=-1).numpy()
-        return {
-            k: (flat[i, 0].astype(np.int64), flat[i, 1], flat[i, 2])
-            for i, k in enumerate(self.pred_keys)
-        }
+                # every part is launched before the first transfer waits
+                with span("engine.upload", device=True):
+                    xs = shard_batch_arrays(self.layout, images_u8)
+                parts = [self._forward(x, r) for r, x in enumerate(xs)]
+                with span("engine.wait"):
+                    flat = torch.cat([p.cpu() for p in parts], dim=-1).numpy()
+            return {
+                k: (flat[i, 0].astype(np.int64), flat[i, 1], flat[i, 2])
+                for i, k in enumerate(self.pred_keys)
+            }
 
     # -- folder-level entry points --------------------------------------------
 

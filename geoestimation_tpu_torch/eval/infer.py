@@ -15,6 +15,8 @@ from dataclasses import dataclass, field
 
 import torch
 
+from ..utils.spans import span
+
 
 @dataclass(frozen=True)
 class HierarchyArrays:
@@ -56,9 +58,10 @@ def hierarchical_log_probs(logits_list, harrays: HierarchyArrays):
     for logits, m in zip(logits_list, harrays.maps):
         lp = torch.log_softmax(logits.float(), dim=-1)
         total = total + lp.index_select(-1, m)
-    # Fine cells lacking ancestors are excluded from the argmax.
-    return torch.where(harrays.valid[None, :], total,
-                       torch.tensor(-math.inf, device=total.device))
+    # Fine cells lacking ancestors are excluded from the argmax. The fill is
+    # a Python scalar: a tensor made from it on the host would be copied up,
+    # and that copy waits for every launch before it.
+    return torch.where(harrays.valid[None, :], total, -math.inf)
 
 
 def predict_hierarchical(logits_list, harrays: HierarchyArrays):
@@ -80,10 +83,11 @@ def predict_per_partitioning(logits_list, harrays: HierarchyArrays):
 def predict_all(logits_list, harrays: HierarchyArrays):
     """All predictions keyed like the reference output CSV: one entry per
     partitioning shortname plus 'hierarchy'."""
-    preds = dict(zip(harrays.names,
-                     predict_per_partitioning(logits_list, harrays)))
-    preds["hierarchy"] = predict_hierarchical(logits_list, harrays)
-    return preds
+    with span("models.fstar"):
+        preds = dict(zip(harrays.names,
+                         predict_per_partitioning(logits_list, harrays)))
+        preds["hierarchy"] = predict_hierarchical(logits_list, harrays)
+        return preds
 
 
 TTA_FOLDS = ("prob_mean", "log_mean", "logit_mean")

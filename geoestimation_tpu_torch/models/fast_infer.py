@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from ..ingest.pipeline import make_crops, normalize
 from ..ops.fused_bottleneck import fold_bn, fused_bottleneck, fused_bottleneck_s2
+from ..utils.spans import span
 from .isn import route_rows
 from .resnet import BN_EPSILON, STAGE_SIZES
 
@@ -207,15 +208,16 @@ def build_fast_apply(state_dict, arch="resnet50", n_classes=None,
              else head_weights(linear("heads.fused_head"), device=device))
 
     def stem_fn(images):
-        x = images.to(torch.bfloat16).permute(0, 3, 1, 2)
-        if mirror:
-            # the mirrored width paddings: the stem's (2, 3), the pool's
-            # (0, 1) with -inf, as reduce_window pads
-            x = torch.relu(_conv_bias(F.pad(x, (2, 3, 3, 3)), *stem, 2))
-            return F.max_pool2d(F.pad(x, (0, 1, 1, 1), value=float("-inf")),
-                                3, stride=2)
-        x = torch.relu(_conv_bias(x, *stem, 2, 3))
-        return F.max_pool2d(x, 3, stride=2, padding=1)
+        with span("models.stem", device=True):
+            x = images.to(torch.bfloat16).permute(0, 3, 1, 2)
+            if mirror:
+                # the mirrored width paddings: the stem's (2, 3), the pool's
+                # (0, 1) with -inf, as reduce_window pads
+                x = torch.relu(_conv_bias(F.pad(x, (2, 3, 3, 3)), *stem, 2))
+                return F.max_pool2d(
+                    F.pad(x, (0, 1, 1, 1), value=float("-inf")), 3, stride=2)
+            x = torch.relu(_conv_bias(x, *stem, 2, 3))
+            return F.max_pool2d(x, 3, stride=2, padding=1)
 
     def make_stage_fn(blocks):
         def stage_fn(x):

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from ..ingest.decode import IMAGENET_MEAN, IMAGENET_STD
 from ..ingest.pipeline import eval_pipeline, eval_pipeline_s8
 from ..ops.conv_s8 import conv_s8, conv_s8_reference
+from ..utils.spans import span
 from .fast_infer import (
     check_feature_tta,
     check_square,
@@ -592,26 +593,28 @@ def _int8_net(qnet, n_classes=None, feature_tta=None, device="cuda",
     pad_val = dev(qnet["stem_pad_val"], torch.int8)
 
     def stem_fn(x_s8, pf):
-        b, h, w, c = x_s8.shape
-        if h % 2 or w % 2:
-            raise ValueError(
-                f"int8 stem requires even crop dims (got {h}x{w}): the "
-                "space-to-depth formulation folds 2x2 pixel blocks into "
-                "channels, so h+8 and w+8 must be even")
-        # 3 px of "pixel == dataset mean", plus 2 trailing rows/cols so block
-        # space is even (read only by the zero taps)
-        buf = pad_val.expand(b, h + 8, w + 8, c).clone()
-        buf[:, 3:h + 3, 3:w + 3] = x_s8
-        hb, wb = (h + 8) // 2, (w + 8) // 2
-        x2 = torch.zeros((b, hb, wb, stem_cin), dtype=torch.int8,
-                         device=x_s8.device)
-        x2[..., :4 * c] = (buf.reshape(b, hb, 2, wb, 2, c)
-                           .permute(0, 1, 3, 2, 4, 5).reshape(b, hb, wb, 4 * c))
-        h_out, w_out = (h - 1) // 2 + 1, (w - 1) // 2 + 1
-        mult, bias = pf["stem"]
-        y = conv(x2, stem_w, mult, bias, (4, 4), 1, 0, (h_out, w_out), 0.0,
-                 rne)
-        return max_pool_3x3_s2(y)
+        with span("models.stem", device=True):
+            b, h, w, c = x_s8.shape
+            if h % 2 or w % 2:
+                raise ValueError(
+                    f"int8 stem requires even crop dims (got {h}x{w}): the "
+                    "space-to-depth formulation folds 2x2 pixel blocks into "
+                    "channels, so h+8 and w+8 must be even")
+            # 3 px of "pixel == dataset mean", plus 2 trailing rows/cols so
+            # block space is even (read only by the zero taps)
+            buf = pad_val.expand(b, h + 8, w + 8, c).clone()
+            buf[:, 3:h + 3, 3:w + 3] = x_s8
+            hb, wb = (h + 8) // 2, (w + 8) // 2
+            x2 = torch.zeros((b, hb, wb, stem_cin), dtype=torch.int8,
+                             device=x_s8.device)
+            x2[..., :4 * c] = (buf.reshape(b, hb, 2, wb, 2, c)
+                               .permute(0, 1, 3, 2, 4, 5)
+                               .reshape(b, hb, wb, 4 * c))
+            h_out, w_out = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+            mult, bias = pf["stem"]
+            y = conv(x2, stem_w, mult, bias, (4, 4), 1, 0, (h_out, w_out), 0.0,
+                     rne)
+            return max_pool_3x3_s2(y)
 
     def make_block(name, stride, qb):
         k1, k2, k3 = (dev(_kmat(qb[c][0])) for c in ("conv1", "conv2", "conv3"))

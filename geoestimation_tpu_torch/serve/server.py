@@ -12,7 +12,8 @@ Endpoints:
   GET  /healthz     liveness, the torch device the engine runs on, and the
                     partitionings
   GET  /stats       counters (requests, batches, mean batch occupancy, the
-                    seconds spent in `predict_batch`)
+                    seconds spent in `predict_batch`, the seconds requests
+                    waited in the queue, summed and the longest)
 
 Run: python -m geoestimation_tpu_torch.serve --checkpoint DIR [--port 8500]
      [--crops 5|10 --feature_tta] [--cpu]
@@ -34,16 +35,18 @@ from ..classification._cli import (
     add_feature_tta_args,
     int8_kwargs,
 )
+from ..utils.spans import span
 
 
 class _Pending:
-    __slots__ = ("image", "event", "result", "error")
+    __slots__ = ("image", "event", "result", "error", "enqueued")
 
     def __init__(self, image):
         self.image = image
         self.event = threading.Event()
         self.result = None
         self.error = None
+        self.enqueued = time.perf_counter()
 
 
 class MicroBatcher:
@@ -60,6 +63,9 @@ class MicroBatcher:
         self.n_batches = 0
         self.occupancy_sum = 0
         self.predict_s = 0.0   # wall time inside predict_fn
+        # from a request's submit to the start of its batch's predict_fn
+        self.queue_wait_s = 0.0
+        self.queue_wait_max_s = 0.0
         self._stop = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -90,7 +96,8 @@ class MicroBatcher:
                     group.append(self.queue.get(timeout=remaining))
                 except queue.Empty:
                     break
-            self._run(group)
+            with span("serve.batch", request=self.n_batches + 1):
+                self._run(group)
 
     def _run(self, group):
         try:
@@ -106,6 +113,9 @@ class MicroBatcher:
             for i in range(len(group), self.batch_size):
                 images[i] = group[i % len(group)].image
             t0 = time.perf_counter()
+            waits = [t0 - item.enqueued for item in group]
+            self.queue_wait_s += sum(waits)
+            self.queue_wait_max_s = max(self.queue_wait_max_s, *waits)
             preds = self.predict_fn(images)
             self.predict_s += time.perf_counter() - t0
             for i, item in enumerate(group):
@@ -134,6 +144,8 @@ class MicroBatcher:
             "mean_occupancy": self.occupancy_sum / batches,
             "batch_size": self.batch_size,
             "predict_s": self.predict_s,
+            "queue_wait_s": self.queue_wait_s,
+            "queue_wait_max_s": self.queue_wait_max_s,
         }
 
     def close(self):

@@ -4,7 +4,8 @@ The port of `geoestimation_tpu/train/loop.py`: the step on the device for
 each batch of the loader, validation at intervals (val_loss and the GCD
 accuracies of the f* rule), best-val-loss checkpoint retention, resume from
 the latest checkpoint, a checkpoint on SIGTERM, and an optional
-`torch.profiler` trace (`profile_dir`).
+`torch.profiler` trace (`profile_dir`), which carries the port's spans
+(`utils/spans.py`: `train.step` and its stages, `train.batch_wait`).
 
 In several processes (`parallel/multihost.py`) every process runs this same
 Trainer on its device, one slot of the (data, model) layout each
@@ -42,6 +43,7 @@ from ..geo import Hierarchy, load_partitionings
 from ..parallel import multihost
 from ..parallel.mesh import make_mesh
 from ..utils.logging import MetricsLogger
+from ..utils.spans import span
 from .init import init_weights, model_from_config
 from .optim import build_optimizer
 from .step import (
@@ -238,7 +240,8 @@ class Trainer:
         it = iter(batcher)
         while True:
             t0 = time.perf_counter()
-            batch = next(it, None)
+            with span("train.batch_wait"):
+                batch = next(it, None)
             self.batch_wait_s += time.perf_counter() - t0
             if batch is None:
                 return
@@ -307,14 +310,19 @@ class Trainer:
         kw = dict(label_smoothing=tp.label_smoothing, crop=tp.image_size,
                   crop_scale=tuple(tp.train_crop_scale)
                   if tp.train_crop_scale else None)
-        if self.config.model_params.scene_gating:
-            return lambda state, batch: train_step_isn(
-                state, self._feed(batch.images), self._feed(batch.labels),
-                self._scene(batch), tp.seed,
-                scene_loss_weight=tp.scene_loss_weight, **kw)
-        return lambda state, batch: train_step(
-            state, self._feed(batch.images), self._feed(batch.labels),
-            tp.seed, **kw)
+        isn = self.config.model_params.scene_gating
+
+        def train_fn(state, batch):
+            with span("train.step", request=state.step):
+                images = self._feed(batch.images)
+                labels = self._feed(batch.labels)
+                if isn:
+                    return train_step_isn(
+                        state, images, labels, self._scene(batch), tp.seed,
+                        scene_loss_weight=tp.scene_loss_weight, **kw)
+                return train_step(state, images, labels, tp.seed, **kw)
+
+        return train_fn
 
     @_on_layout
     def fit(self, max_steps: Optional[int] = None, resume: bool = True):

@@ -27,6 +27,7 @@ from ..ingest.pipeline import center_crop, normalize, train_pipeline
 from ..models.classifier import multi_head_cross_entropy
 from ..models.isn import isn_loss, route_rows
 from ..parallel import multihost
+from ..utils.spans import span
 from .optim import Optimizer
 
 
@@ -52,9 +53,12 @@ def _inputs(state, images_u8, seed, crop, augment, crop_scale, draws):
 
 def _update(state, loss):
     state.optimizer.zero_grad()
-    loss.backward()
-    multihost.all_reduce_grads(state.optimizer.params)
-    state.optimizer.step()
+    with span("train.backward", device=True):
+        loss.backward()
+    with span("train.all_reduce"):
+        multihost.all_reduce_grads(state.optimizer.params)
+    with span("train.optimizer", device=True):
+        state.optimizer.step()
     state.step += 1
 
 
@@ -82,9 +86,11 @@ def train_step(state: TrainState, images_u8, labels, seed: int,
     `ingest.pipeline.crop_draws`; `draws` are this process's rows).
     augment=False takes the center crop. Returns (state, metrics): loss,
     loss_head{i}, n_valid."""
-    x = _inputs(state, images_u8, seed, crop, augment, crop_scale, draws)
-    total, per_head = multi_head_cross_entropy(
-        state.model(x, train=True), labels, label_smoothing=label_smoothing)
+    with span("train.forward", device=True):
+        x = _inputs(state, images_u8, seed, crop, augment, crop_scale, draws)
+        total, per_head = multi_head_cross_entropy(
+            state.model(x, train=True), labels,
+            label_smoothing=label_smoothing)
     _update(state, total)
     return state, _metrics(total, {f"loss_head{i}": l
                                    for i, l in enumerate(per_head)}, labels)
@@ -110,11 +116,12 @@ def train_step_isn(state: TrainState, images_u8, labels, scene, seed: int,
                    crop_scale=None, draws=None):
     """ISN optimization step: scene CE + geo CE on the ground-truth-scene
     heads (`models.isn.isn_loss`). scene: (B,) int, -1 = unknown."""
-    x = _inputs(state, images_u8, seed, crop, augment, crop_scale, draws)
-    scene_logits, heads = state.model.with_scene(x, train=True)
-    total, comps = isn_loss(scene_logits, heads, labels, scene,
-                            scene_loss_weight=scene_loss_weight,
-                            label_smoothing=label_smoothing)
+    with span("train.forward", device=True):
+        x = _inputs(state, images_u8, seed, crop, augment, crop_scale, draws)
+        scene_logits, heads = state.model.with_scene(x, train=True)
+        total, comps = isn_loss(scene_logits, heads, labels, scene,
+                                scene_loss_weight=scene_loss_weight,
+                                label_smoothing=label_smoothing)
     _update(state, total)
     return state, _metrics(total, {"scene_loss": comps["scene_loss"],
                                    "geo_loss": comps["geo_loss"]}, labels)

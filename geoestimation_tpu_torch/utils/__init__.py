@@ -1,1 +1,2 @@
-"""Configuration (the hparams.yaml schema) and metrics logging."""
+"""Configuration (the hparams.yaml schema), metrics logging and the spans
+at the layer boundaries."""

@@ -9,6 +9,7 @@ import os
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.request
 
@@ -92,6 +93,52 @@ class TestMicroBatcher:
         mb.close()
         assert len(errors) == 3
         assert mb.stats()["requests"] == 0
+
+    def test_queue_wait_and_batch_spans(self):
+        """Each request's wait from `submit` to the start of its batch's
+        predict is summed and the longest kept in `stats()`; while a torch
+        profiler records, each batch runs in a `serve.batch` span whose
+        request id is the batch's number."""
+        from torch.profiler import ProfilerActivity, profile
+
+        from geoestimation_tpu_torch.utils import spans
+
+        calls, started, release = [], threading.Event(), threading.Event()
+        answer = fake_predict(calls)
+
+        def predict(images):
+            # the first batch is held until all three requests are queued
+            started.set()
+            release.wait(timeout=300)
+            time.sleep(0.05)
+            return answer(images)
+
+        spans.reset()
+        mb = MicroBatcher(predict, batch_size=1, max_wait_ms=1, base_size=4)
+        try:
+            with profile(activities=[ProfilerActivity.CPU]):
+                threads = [threading.Thread(target=mb.submit, args=(
+                    np.zeros((4, 4, 3), np.uint8),)) for _ in range(3)]
+                for t in threads:
+                    t.start()
+                deadline = time.monotonic() + 300
+                while not (started.is_set() and mb.queue.qsize() == 2) \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.001)
+                release.set()
+                for t in threads:
+                    t.join(timeout=300)
+                    assert not t.is_alive()
+            stats = mb.stats()
+            batches = [(name, req) for name, _, _, _, req in spans.records()]
+        finally:
+            mb.close()
+            spans.reset()
+        assert stats["batches"] == len(calls) == 3
+        # the last request waited for the first two batches' predicts
+        assert 0.1 <= stats["queue_wait_max_s"] < stats["queue_wait_s"]
+        assert batches == [("serve.batch", 1), ("serve.batch", 2),
+                           ("serve.batch", 3)]
 
     def test_pad_slots_repeat_real_images(self):
         seen = []
@@ -268,6 +315,7 @@ class TestHTTP:
         assert data["batch_size"] == 4
         assert 1 <= data["mean_occupancy"] <= 4
         assert data["predict_s"] > 0
+        assert 0 <= data["queue_wait_max_s"] <= data["queue_wait_s"]
 
 
 # -- the CLI -----------------------------------------------------------------
