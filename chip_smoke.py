@@ -7,6 +7,8 @@
                                              # kernel build), on every card
     python3 chip_smoke.py --phase 13         # phase 13 alone (after the
                                              # kernel build)
+    python3 chip_smoke.py --phase 14         # phase 14 alone (after the
+                                             # kernel build)
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -75,14 +77,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
      train_crop_scale (0.66, 1.0), the baseM recipe), validated and
      checkpointed at each epoch end: the loss per step (finite), train
      images/s past the first two steps, peak memory and the host's wait
-     for batches, no kernel launched by a train step; `bench_train` at
-     batch 256 with and without remat, and on one more step: a finite
+     for batches, no inference kernel launched by a train step and the
+     train-mode BatchNorm kernels 212 times a step (four for each of the
+     53 BatchNorms); `bench_train` at batch 256 with and without remat
+     (212 and 316 BatchNorm launches a step), and on one more step: a finite
      loss, every parameter updated as the optimizer computed, and each
      BatchNorm's running
      statistics 0.9 * old + 0.1 * a plain float32 mean and biased variance
      of its input in that step, and the device time by operator of two
-     steps (torch.profiler); an overfit check (25 steps on one batch of 64
-     center crops, the last loss under half the first); then the best
+     steps (torch.profiler; the BatchNorm kernels by name, and the counter
+     `bn_train.launches` of the traced steps, 212 each); an overfit check
+     (25 steps on one batch of 64 center crops, the last loss under half
+     the first); then the best
      checkpoint served by `InferenceEngine` on the default fast path
      (6 fused_bottleneck launches a forward, logits within the fast-path
      gates of the module path, the same predicted classes) on 8 of the
@@ -106,7 +112,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      batch statistics (from the running statistics) within 5e-3 of one
      process's (the mean in units of the standard deviation, the variance
      relative), the heads' update over the run within 8e-3 of one
-     process's (relative, in norm), no kernel launched by a train step
+     process's (relative, in norm), no inference kernel launched by a
+     train step
      (`--planted-faults` instead runs a clean pair and pairs with the
      gradient all-reduce, the global BatchNorm sums or their backward's
      sum taken out of their ranks, and fails unless only the clean pair
@@ -167,7 +174,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
      (ResNet50, 512 training records, 64 eval images), the two
      partitioning CLIs on its eval meta CSV (their CSVs those of
      `create_cells` and `assign_classes`), `train_base` on its config for
-     4 steps on the card (no kernel launched), `classification.inference
+     4 steps on the card (no inference kernel launched),
+     `classification.inference
      --fast --pallas` on the checkpoint (6 `fused_bottleneck` launches a
      forward, a row for every image), and the checkpoint on the fast path
      against the module path as phase 9 serves its own;
@@ -183,9 +191,22 @@ Phases, in order; any failure exits non-zero and prints no result line:
      route, at 4 crops and then at 640 on the timed input; one `conv_s8`
      launch a call of s2d, direct and hfold48, none of hfold24 or the
      library); `tools.train_roofline` at batch 256
-     (flops and bytes of one step, measured against ideal ms, no kernel
+     (flops and bytes of one step, the BatchNorm kernels' own bytes
+     among them, measured against ideal ms, no inference kernel
      launched);
- 14. one JSON line describing every kernel (with its launches per forward
+ 14. the train-mode BatchNorm kernels (`ops.bn_train`) at every shape of
+     ResNet50's 53 BatchNorms in a train step at batch 256 and 224 px, in
+     bf16 and float32: each of the four against its plain version on the
+     same inputs (the sums, dgamma, dbeta, d1 and d2 within 2e-5 of the
+     same steps on the magnitudes; the maps within 2^-7 (float32: 1e-5) of
+     the largest value, in bf16 99% of them equal; the residual's gradient
+     equal), the two reductions the same bits on a second run; in bf16
+     each kernel's device ms (20 calls queued behind a sleeping kernel,
+     between CUDA events; maps under the L2's 50 MB read warm) beside its
+     bound (the bytes of its maps), the plain version's four steps and
+     cuDNN's train-mode BatchNorm forward and backward (the yardstick,
+     never called by the port), summed over a step;
+ 15. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
@@ -201,6 +222,7 @@ import io
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import socket
 import subprocess
@@ -230,6 +252,7 @@ from geoestimation_tpu_torch.models.fast_infer import (
     build_mirror_tta_apply,
 )
 from geoestimation_tpu_torch.ops import _build
+from geoestimation_tpu_torch.ops import bn_train as ops_bn
 from geoestimation_tpu_torch.ops import conv_s8 as ops8
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
 from geoestimation_tpu_torch.serve import GeoInferenceServer
@@ -255,6 +278,7 @@ from geoestimation_tpu_torch.tools.card import (
 )
 from geoestimation_tpu_torch.train.optim import Optimizer, constant_schedule
 from geoestimation_tpu_torch.train.step import train_step
+from geoestimation_tpu_torch.utils import spans
 from geoestimation_tpu_torch.utils.config import load_config
 
 # (label, N, H, W, Cin, Cmid, Cout, projection, launches per forward) of
@@ -1153,6 +1177,12 @@ TRAIN_STEPS = 12
 TRAIN_BATCH = 256
 OVERFIT_BATCH = 64
 BN_RTOL, BN_ATOL = 1e-3, 1e-5   # fast against two-pass float32 variance
+# the train-mode BatchNorm kernels a ResNet50 train step launches: four for
+# each of its 53 BatchNorms; with remat the 52 in blocks run their forward's
+# two once more
+BN_NORMS = len(resnet.train_norms("resnet50", TRAIN_BATCH, 224))
+BN_LAUNCHES = 4 * BN_NORMS
+BN_LAUNCHES_REMAT = BN_LAUNCHES + 2 * (BN_NORMS - 1)
 
 
 class _Stamped(io.TextIOBase):
@@ -1179,11 +1209,12 @@ def _all_launches():
 
 
 def _fit(label, path):
-    """train_base.main on the world at `path`; returns the trainer and the
-    kernels' launches during it. The host's wait for batches is reported
-    against the wall from the start of main to the last step."""
+    """train_base.main on the world at `path`; returns the trainer, the
+    kernels' launches during it and bn_train's a step. The host's wait for
+    batches is reported against the wall from the start of main to the
+    last step."""
     ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
-    ops8.conv_s8.launches = 0
+    ops8.conv_s8.launches = ops_bn.bn_train.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = _Stamped(sys.stdout)
     t0 = time.perf_counter()
@@ -1192,6 +1223,7 @@ def _fit(label, path):
                                    str(TRAIN_STEPS), "--no_resume"])
     wall = time.perf_counter() - t0
     launches = _all_launches()
+    bn_launches = ops_bn.bn_train.launches
     steps, after_epoch_end = [], set()
     for t, line in out.lines:
         if line.startswith("step "):
@@ -1217,12 +1249,16 @@ def _fit(label, path):
         "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
         "batch_wait_s": trainer.batch_wait_s,
         "batch_wait_share": trainer.batch_wait_s / (steps[-1][1] - t0),
+        "bn_train_launches_per_step": bn_launches / TRAIN_STEPS,
         "wall_s": wall, "card": label}
     log("train fit " + json.dumps(line))
     if launches != (0, 0, 0):
         raise RuntimeError(f"train: the train steps launched kernels "
                            f"{launches}")
-    return trainer, launches
+    if bn_launches != TRAIN_STEPS * BN_LAUNCHES:
+        raise RuntimeError(f"train: {bn_launches} bn_train launches in "
+                           f"{TRAIN_STEPS} steps, want {BN_LAUNCHES} a step")
+    return trainer, launches, bn_launches // TRAIN_STEPS
 
 
 def _bn_checked_step(state, step):
@@ -1238,11 +1274,11 @@ def _bn_checked_step(state, step):
     seen = []
     plain = resnet.batch_norm_train
 
-    def recording(x, bn):
+    def recording(x, bn, relu=False, residual=None):
         var, mean = torch.var_mean(x.detach().float(), dim=(0, 2, 3),
                                    unbiased=False)
         seen.append((bn, mean, var))
-        return plain(x, bn)
+        return plain(x, bn, relu=relu, residual=residual)
 
     resnet.batch_norm_train = recording
     try:
@@ -1278,28 +1314,42 @@ def _bn_checked_step(state, step):
 
 def _profile(label, step, step_ms):
     """Device time by operator over two bench steps (torch.profiler; each
-    kernel counted once, under the operator that launched it), and the
-    device's busy share of an unprofiled step of `step_ms`."""
+    kernel counted once, under the operator that launched it; the
+    BatchNorm kernels, launched through ctypes under no operator, by
+    kernel), the device's busy share of an unprofiled step of `step_ms`,
+    and the counter `bn_train.launches` of the traced steps."""
     kind = torch.autograd.DeviceType
+    spans.reset()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(2):
             step()
         torch.cuda.synchronize()
+    launches = spans.summary()["counters"].get("bn_train.launches", 0) / 2
     events = prof.key_averages()
     busy_ms = sum(e.self_device_time_total for e in events
                   if e.device_type == kind.CUDA) / 2e3
     by_op = sorted((e for e in events if e.device_type == kind.CPU
                     and e.self_device_time_total > 0),
                    key=lambda e: e.self_device_time_total, reverse=True)
+    bn = {}
+    for e in events:
+        name = re.search(r"bn_\w+_kernel", e.key)
+        if e.device_type == kind.CUDA and name:
+            bn[name[0]] = bn.get(name[0], 0.0) \
+                + e.self_device_time_total / 2e3
     log("train profile " + json.dumps({
         "what": "bench_train step at batch 256, device ms a step by "
                 "operator (its kernels' self time, mean of two steps)",
         "device_busy_ms_per_step": busy_ms, "step_ms": step_ms,
         "device_busy_share": busy_ms / step_ms,
         "top": {e.key: e.self_device_time_total / 2e3 for e in by_op[:14]},
-        "card": label}))
+        "bn_train_kernels_ms": bn,
+        "bn_train_launches_per_traced_step": launches, "card": label}))
+    if launches != BN_LAUNCHES:
+        raise RuntimeError(f"train: the counter bn_train.launches read "
+                           f"{launches} a traced step, want {BN_LAUNCHES}")
 
 
 def _bench(label):
@@ -1310,11 +1360,17 @@ def _bench(label):
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         state, _, _, step = bench_train.setup(TRAIN_BATCH, remat=remat)
+        ops_bn.bn_train.launches = 0
         ms, metrics = bench_train.measure(step, 10, torch.device("cuda"))
+        per_step = ops_bn.bn_train.launches / 11     # a warm-up step and 10
         out["remat" if remat else "plain"] = {
             "ms_per_step": ms, "images_per_s": TRAIN_BATCH * 1e3 / ms,
             "loss": float(metrics["loss"]),
-            "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30}
+            "peak_mem_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "bn_train_launches_per_step": per_step}
+        if per_step != (BN_LAUNCHES_REMAT if remat else BN_LAUNCHES):
+            raise RuntimeError(f"train: bench_train (remat {remat}) launched "
+                               f"bn_train {per_step} times a step")
         if not remat:
             _bn_checked_step(state, step)
             _profile(label, step, ms)
@@ -1391,11 +1447,11 @@ def _shard_world(tmp):
 def phase_train(label, tmp):
     """Training at baseM's full width (module docs, 9) on a shard world
     written under `tmp`; returns each kernel's launches during the train
-    steps, fused_bottleneck's per forward of the trained checkpoint, and
-    the world's config path."""
+    steps, fused_bottleneck's per forward of the trained checkpoint, the
+    world's config path and bn_train's launches a train step."""
     torch.cuda.empty_cache()
     path = _shard_world(tmp)
-    trainer, launches = _fit(label, path)
+    trainer, launches, bn_per_step = _fit(label, path)
     ckpt = trainer.tp.checkpoint_dir
     log(f"train: checkpoints {trainer.ckpt.all_steps()}, best "
         f"{trainer.ckpt.best_step()}")
@@ -1403,7 +1459,7 @@ def phase_train(label, tmp):
     _bench(label)
     _overfit()
     served = _serve_trained(ckpt, os.path.join(tmp, "val", "*.msgpack"))
-    return launches, served, path
+    return launches, served, path, bn_per_step
 
 
 # -- phase 10 ------------------------------------------------------------------
@@ -1430,11 +1486,11 @@ def _no_grad_allreduce(multihost):
 
 def _local_bn_statistics(multihost):
     multihost.sum_over_ranks = lambda t: t
+    multihost.sum_bn_grads = lambda t: t
 
 
 def _bn_sums_without_gradient_sum(multihost):
-    total = multihost.device_sum
-    multihost.sum_over_ranks = lambda t: t + (total(t) - t).detach()
+    multihost.sum_bn_grads = lambda t: t
 
 
 def _sums_over_every_rank(multihost):
@@ -1445,9 +1501,8 @@ def _sums_over_every_rank(multihost):
         torch.distributed.all_reduce(t, group=group())
         return t
 
-    multihost.sum_over_ranks = lambda t: multihost._SumOverRanks.apply(
-        t, group())
-    multihost.device_sum = device_sum
+    multihost.sum_over_ranks = multihost.device_sum = device_sum
+    multihost.sum_bn_grads = device_sum
 
 
 def _feature_grad_not_reduced(multihost):
@@ -1457,15 +1512,18 @@ def _feature_grad_not_reduced(multihost):
 
 
 # what `--planted-faults` breaks in a training pair's rank processes: the
-# gradient all-reduce; the BatchNorm sums over the ranks; their backward
+# gradient all-reduce; the BatchNorm sums over the ranks, forward and
+# backward; the backward's sums alone (`multihost.sum_bn_grads`, which
+# `ops.bn_train`'s backward calls), the forward's statistics still global
 FAULTS = {"no_grad_allreduce": _no_grad_allreduce,
           "local_bn_statistics": _local_bn_statistics,
           "bn_sums_without_gradient_sum": _bn_sums_without_gradient_sum}
-# and in a model-axis pair's: the data axis's sums (BatchNorm statistics,
-# valid counts, metrics) over every rank, where model-axis peers hold the
-# same rows (the statistics alone would be exact: their element count is
-# summed with them, PERF.md); the features' gradient not summed (classes
-# split) or gathered (features split) over the model group
+# and in a model-axis pair's: the data axis's sums (BatchNorm statistics
+# and the backward's sums, valid counts, metrics) over every rank, where
+# model-axis peers hold the same rows (the statistics alone would be exact:
+# their element count is summed with them, PERF.md); the features' gradient
+# not summed (classes split) or gathered (features split) over the model
+# group
 MODEL_FAULTS = {"sums_over_every_rank": _sums_over_every_rank,
                 "feature_grad_not_reduced": _feature_grad_not_reduced}
 
@@ -2937,6 +2995,249 @@ def phase_tools(label):
     return e2e, stem
 
 
+# -- phase 14 ------------------------------------------------------------------
+
+BN_CROP = 224
+# kernel against plain version on the card: the sums, dgamma, dbeta, d1
+# and d2 within 2e-5 of the same steps on the magnitudes (float32 sums of up
+# to 3.2M terms in another order); the maps within one unit of the last place
+# of bf16 (float32: 1e-5) of the plain version's largest value, and in bf16
+# at least 99% of them equal
+BN_SUM_TOL = 2e-5
+BN_MAP_TOL = {torch.bfloat16: 2 ** -7, torch.float32: 1e-5}
+BN_MIN_EQUAL = 0.99
+
+
+def bn_train_shapes(batch=TRAIN_BATCH, crop=BN_CROP):
+    """{((N, C, H, W), form): [names]} of ResNet50's train-mode BatchNorms
+    at `batch` images of `crop` px, in the forward's order."""
+    out = {}
+    for name, shape, form in resnet.train_norms("resnet50", batch, crop):
+        out.setdefault((shape, form), []).append(name)
+    return out
+
+
+_FORMS = {"plain": ops_bn.PLAIN, "relu": ops_bn.RELU,
+          "residual": ops_bn.ADD_RELU}
+
+
+def bn_inputs(shape, form, dtype, seed):
+    """(x, residual or None, dy, weight, bias): seeded channels-last maps on
+    the card, x at mean 0.3 and deviation 1.5, float32 parameters."""
+    n, c, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nchw(scale=1.0, shift=0.0):
+        return (torch.randn((n, h, w, c), generator=gen, device="cuda")
+                * scale + shift).to(dtype).permute(0, 3, 1, 2)
+
+    x = nchw(1.5, 0.3)
+    res = nchw() if form == "residual" else None
+    weight = torch.rand(c, generator=gen, device="cuda") + 0.5
+    bias = torch.randn(c, generator=gen, device="cuda") * 0.3
+    return x, res, nchw(), weight, bias
+
+
+def _bn_sum_err(got, ref, magnitude):
+    return float(((got - ref).abs() / magnitude.clamp_min(1e-30)).max())
+
+
+def _bn_map_check(what, got, ref, dtype):
+    """(max error over the largest value, share of equal elements); in
+    float32 the plain backward's float64 differs in the last places, so
+    only bf16's share is held."""
+    g, r = got.float(), ref.float()
+    err = float((g - r).abs().max())
+    scale = max(float(r.abs().max()), 1e-30)
+    equal = float((g == r).float().mean())
+    if not (torch.isfinite(g).all() and err <= BN_MAP_TOL[dtype] * scale
+            and (equal >= BN_MIN_EQUAL or dtype != torch.bfloat16)):
+        raise RuntimeError(f"bn_train {what}: max error {err} of "
+                           f"{scale}, equal share {equal:.5f}")
+    return err / scale, equal
+
+
+def check_bn_train(shape, form, dtype, seed=0):
+    """The four kernels against their plain version at one shape: each on
+    the same inputs as its plain version (the kernel's sums feed both);
+    two runs of each reduction the same bits. Returns the errors."""
+    code, eps = _FORMS[form], resnet.BN_EPSILON
+    x, res, dy, weight, bias = bn_inputs(shape, form, dtype, seed)
+    sums = ops_bn.stats(x)
+    again = ops_bn.stats(x)
+    torch.cuda.synchronize()
+    ref = ops_bn.stats_reference(x)
+    mag = ops_bn.stats_reference(x.abs())
+    errs = {"stats": _bn_sum_err(sums, ref, mag)}
+    if not torch.equal(sums, again) or errs["stats"] > BN_SUM_TOL:
+        raise RuntimeError(f"bn_train stats at {shape} {dtype}: error "
+                           f"{errs['stats']}, repeatable "
+                           f"{torch.equal(sums, again)}")
+    del ref, mag
+    out, mean, var = ops_bn.apply(x, sums, weight, bias, eps, code, res)
+    torch.cuda.synchronize()
+    rout, rmean, rvar = ops_bn.apply_reference(x, sums, weight, bias, eps,
+                                               code, res)
+    errs["apply"] = _bn_map_check(f"apply at {shape} {form} {dtype}", out,
+                                  rout, dtype)
+    if not (torch.allclose(mean, rmean, rtol=1e-6, atol=0)
+            and torch.allclose(var, rvar, rtol=1e-6, atol=0)):
+        raise RuntimeError(f"bn_train apply's statistics at {shape}")
+    del rout
+    mask = None if code == ops_bn.PLAIN else out
+    red = ops_bn.bwd_reduce(dy, mask, x, sums, weight, eps, code)
+    red2 = ops_bn.bwd_reduce(dy, mask, x, sums, weight, eps, code)
+    torch.cuda.synchronize()
+    rred = ops_bn.bwd_reduce_reference(dy, mask, x, sums, weight, eps, code)
+    # each row's magnitude: the same steps on the absolute values
+    g = dy.float() if mask is None else torch.where(out > 0, dy, 0).float()
+    _, _, rstd, _ = ops_bn.channel_stats(sums, eps)
+    sg = g.abs().sum(dim=(0, 2, 3))
+    sgc = (g * (x.float() - mean[:, None, None])).abs().sum(dim=(0, 2, 3))
+    dvar = 0.5 * sgc * weight.abs() * rstd.pow(3)
+    rmag = torch.stack([sg, sgc * rstd, ((rstd * weight).abs() * sg
+                                         + 2 * mean.abs() * dvar) / sums[-1],
+                        dvar / sums[-1]])
+    errs["bwd_reduce"] = _bn_sum_err(red, rred, rmag)
+    if not torch.equal(red, red2) or errs["bwd_reduce"] > BN_SUM_TOL:
+        raise RuntimeError(f"bn_train bwd_reduce at {shape} {form} {dtype}: "
+                           f"error {errs['bwd_reduce']}, repeatable "
+                           f"{torch.equal(red, red2)}")
+    del g, rmag, rred
+    dx, dres = ops_bn.bwd_dx(dy, mask, x, sums, weight, red[2:], eps, code)
+    torch.cuda.synchronize()
+    rdx, rdres = ops_bn.bwd_dx_reference(dy, mask, x, sums, weight, red[2:],
+                                         eps, code)
+    errs["bwd_dx"] = _bn_map_check(f"bwd_dx at {shape} {form} {dtype}", dx,
+                                   rdx, dtype)
+    if (dres is None) != (rdres is None) or (
+            dres is not None and not torch.equal(dres, rdres)):
+        raise RuntimeError(f"bn_train: the residual's gradient at {shape}")
+    return errs
+
+
+def bn_bytes(shape, form, dtype):
+    """Bytes each kernel must move at one shape (maps read and written
+    once, the per-channel vectors left out)."""
+    n, c, h, w = shape
+    m = n * c * h * w * torch.finfo(dtype).bits // 8
+    res = form == "residual"
+    return {"stats": m, "apply": (2 + res) * m,
+            "bwd_reduce": (2 + (form != "plain")) * m,
+            "bwd_dx": (3 + (form != "plain") + res) * m}
+
+
+def _queued_ms(fn, reps=20):
+    """Device ms of one call of fn(): `reps` calls queued behind a sleeping
+    kernel, so that the card runs them back to back whatever the host's
+    launch time, between two CUDA events (after a warm-up call). Maps
+    under the 50 MB L2 are read warm."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)       # about 25 ms at 1.98 GHz
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_bn_train(shape, form, dtype):
+    """{kernel: device ms} of the four kernels, of the plain version's four
+    steps and of cuDNN's train-mode BatchNorm forward and backward (no
+    relu, no residual; the yardstick, which the port never calls) at one
+    shape."""
+    code, eps = _FORMS[form], resnet.BN_EPSILON
+    x, res, dy, weight, bias = bn_inputs(shape, form, dtype, 1)
+
+    def plain():
+        s = ops_bn.stats_reference(x)
+        o, _, _ = ops_bn.apply_reference(x, s, weight, bias, eps, code, res)
+        o = None if code == ops_bn.PLAIN else o
+        r = ops_bn.bwd_reduce_reference(dy, o, x, s, weight, eps, code)
+        ops_bn.bwd_dx_reference(dy, o, x, s, weight, r[2:], eps, code)
+
+    xg = x.detach().clone().requires_grad_()
+    wg, bg = weight.clone().requires_grad_(), bias.clone().requires_grad_()
+
+    def library():
+        y = torch.nn.functional.batch_norm(xg, None, None, wg, bg,
+                                           training=True, eps=eps)
+        torch.autograd.grad(y, (xg, wg, bg), dy)
+
+    sums = ops_bn.stats(x)
+    out, _, _ = ops_bn.apply(x, sums, weight, bias, eps, code, res)
+    mask = None if code == ops_bn.PLAIN else out
+    red = ops_bn.bwd_reduce(dy, mask, x, sums, weight, eps, code)
+    ms = {"stats": _queued_ms(lambda: ops_bn.stats(x)),
+          "apply": _queued_ms(lambda: ops_bn.apply(x, sums, weight, bias, eps,
+                                                   code, res)),
+          "bwd_reduce": _queued_ms(lambda: ops_bn.bwd_reduce(
+              dy, mask, x, sums, weight, eps, code)),
+          "bwd_dx": _queued_ms(lambda: ops_bn.bwd_dx(
+              dy, mask, x, sums, weight, red[2:], eps, code)),
+          "plain": _queued_ms(plain, reps=3),
+          "library": _queued_ms(library)}
+    return ms
+
+
+def phase_bn_train(label):
+    """The train-mode BatchNorm kernels (module docs, 14); returns their
+    JSON entry (launches filled in from phase 9's train steps)."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shapes = bn_train_shapes()
+    totals = {k: 0.0 for k in ("stats", "apply", "bwd_reduce", "bwd_dx",
+                               "bound", "plain", "library")}
+    worst = {}
+    for (shape, form), names in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            errs = check_bn_train(shape, form, dtype)
+            for k, v in errs.items():
+                v = v if isinstance(v, float) else v[0]
+                worst[k] = max(worst.get(k, 0.0), v)
+            line = {"kernel": "bn_train", "shape": list(shape), "form": form,
+                    "dtype": str(dtype).split(".")[-1], "norms": names,
+                    "errors": errs, "card": label}
+            if dtype == torch.bfloat16:
+                ms = time_bn_train(shape, form, dtype)
+                nbytes = bn_bytes(shape, form, dtype)
+                bound = {k: bound_ms(0, b)[0] for k, b in nbytes.items()}
+                line.update(kernel_ms=ms, bound_ms=bound)
+                for k in ("stats", "apply", "bwd_reduce", "bwd_dx"):
+                    totals[k] += len(names) * ms[k]
+                    totals["bound"] += len(names) * bound[k]
+                for k in ("plain", "library"):
+                    totals[k] += len(names) * ms[k]
+            log("kernel-check " + json.dumps(line))
+    kernel_ms = sum(totals[k] for k in ("stats", "apply", "bwd_reduce",
+                                        "bwd_dx"))
+    entry = {
+        "name": "bn_train",
+        "route": "cuda",
+        "source": "geoestimation_tpu_torch/csrc/bn_train.cu",
+        "replaces": None,
+        "launches": None,  # filled from phase 9's train steps
+        "max_error": worst,
+        "ms": kernel_ms,
+        "ms_by_kernel": {k: totals[k] for k in ("stats", "apply",
+                                                "bwd_reduce", "bwd_dx")},
+        "plain_ms": totals["plain"],
+        "bound_ms": totals["bound"],
+        "bound_by": "bytes",
+        "library_ms": totals["library"],
+        "what": f"a ResNet50 train step at batch {TRAIN_BATCH} and "
+                f"{BN_CROP} px, bf16: every BatchNorm's four kernels, summed",
+    }
+    log("bn_train " + json.dumps({**entry, "shapes": len(shapes),
+                                  "seconds": time.perf_counter() - t0,
+                                  "card": label}))
+    return entry
+
+
 def main():
     t0 = time.perf_counter()
     label, ptxas = phase_device()
@@ -2956,12 +3257,14 @@ def main():
     del fast
     isn = phase_isn(label)
     with tempfile.TemporaryDirectory() as tmp:
-        train_launches, trained, world_yml = phase_train(label, tmp)
+        train_launches, trained, world_yml, bn_per_step = phase_train(label,
+                                                                      tmp)
         mp, mp8, mp_train, mp_model = phase_multi(label, tmp, world_yml,
                                                   config, sd, parts)
         qd = phase_qat_distill(label, tmp)
         demo = phase_prep(label, tmp)
     e2e, stem = phase_tools(label)
+    kernels.append(phase_bn_train(label))
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
@@ -3007,7 +3310,11 @@ def main():
                     "bench_e2e_eval_int8": e2e["int8"][2],
                     "bench_e2e_eval_bf16": e2e["bf16"][2],
                     **{f"bench_stem_{form}": n for form, n in stem.items()}},
+        "bn_train": {"train_steps": bn_per_step,
+                     "bench_train_step": BN_LAUNCHES,
+                     "bench_train_remat_step": BN_LAUNCHES_REMAT},
     }
+    launches["bn_train"] = bn_per_step
     for entry in kernels:
         entry["launches"] = launches[entry["name"]]
         entry["launches_by_path"] = by_path[entry["name"]]
@@ -3098,6 +3405,17 @@ def phase_13_alone():
         "wall_s": time.perf_counter() - t0, "card": label}}), flush=True)
 
 
+def phase_14_alone():
+    """`python3 chip_smoke.py --phase 14`: phase 1's build, then phase 14;
+    one line of its wall after phase 14's own lines."""
+    label, _ = phase_device()
+    t0 = time.perf_counter()
+    entry = phase_bn_train(label)
+    print(json.dumps({"phase_14": {
+        "ok": True, "ms": entry["ms"], "bound_ms": entry["bound_ms"],
+        "wall_s": time.perf_counter() - t0, "card": label}}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         fault, rest = None, sys.argv[3:]
@@ -3110,5 +3428,7 @@ if __name__ == "__main__":
         phase_10_alone()
     elif sys.argv[1:] == ["--phase", "13"]:
         phase_13_alone()
+    elif sys.argv[1:] == ["--phase", "14"]:
+        phase_14_alone()
     else:
         main()

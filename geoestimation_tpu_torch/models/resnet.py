@@ -16,13 +16,15 @@ back; the global pool summed in float32 and rounded to the compute dtype.
 `forward(images, train=True)` is flax's train mode (`nn.BatchNorm`,
 momentum 0.9): each BatchNorm normalizes with its batch's float32 mean and
 biased "fast" variance E[x^2] - E[x]^2 (clipped at 0), and the running
-statistics become 0.9 * old + 0.1 * batch, once per forward, after it. In
-several processes the batch is the global one, as under the JAX package's
-GSPMD: the statistics are summed over the ranks by a differentiable
-all-reduce (`parallel/multihost.py`'s device group), so the running
-statistics agree on every rank without a broadcast. With `remat`, each
-bottleneck block is recomputed on the backward pass
-(`torch.utils.checkpoint`, flax's `nn.remat(Bottleneck)`).
+statistics become 0.9 * old + 0.1 * batch, once per forward, after it. Each
+train-mode BatchNorm runs with the relu or residual add after it as one
+autograd Function (`ops/bn_train.py`: four CUDA kernels on the card, their
+plain version on the CPU). In several processes the batch is the global
+one, as under the JAX package's GSPMD: the statistics are summed over the
+ranks by an all-reduce (`parallel/multihost.py`'s device group), and their
+backward's sums too, so the running statistics agree on every rank without
+a broadcast. With `remat`, each bottleneck block is recomputed on the
+backward pass (`torch.utils.checkpoint`, flax's `nn.remat(Bottleneck)`).
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel import multihost
+from ..ops.bn_train import bn_train
 
 # Canonical stage sizes -- the single source for anything that walks block
 # names (fast inference path, weights bridge).
@@ -57,28 +59,47 @@ def batch_norm(x, bn: nn.BatchNorm2d):
     return (y + bn.bias[:, None, None]).to(x.dtype)
 
 
-def batch_norm_train(x, bn: nn.BatchNorm2d):
-    """Train-mode BatchNorm as flax computes it: statistics of x's batch in
-    float32, the variance E[x^2] - E[x]^2 clipped at 0 (biased), then
-    ((x - mean) * (rsqrt(var + eps) * scale)) + bias in float32, cast back to
-    x's dtype. Returns (y, mean, var); the running statistics are the
-    caller's to update (`update_running_stats`).
+def batch_norm_train(x, bn: nn.BatchNorm2d, relu=False, residual=None):
+    """Train-mode BatchNorm as flax computes it, then relu where `relu`, or
+    relu(y + residual) where a residual is given: statistics of x's batch
+    in float32, the variance E[x^2] - E[x]^2 clipped at 0 (biased), then
+    ((x - mean) * (rsqrt(var + eps) * scale)) + bias in float32, cast back
+    to x's dtype, the residual added in that dtype. Returns (out, mean,
+    var); the running statistics are the caller's to update
+    (`update_running_stats`).
 
     The statistics are the float32 per-channel sums of x and x^2 over the
     element count. With a device group of several ranks they are the
-    global batch's: the sums and the count are summed over the ranks by an
-    all-reduce whose backward sums the gradients (SyncBatchNorm's
-    pattern), then divided."""
-    xf = x.float()
-    c = x.shape[1]
-    sums = multihost.sum_over_ranks(torch.cat([
-        xf.sum(dim=(0, 2, 3)), xf.square().sum(dim=(0, 2, 3)),
-        xf.new_full((1,), x.numel() // c)]))
-    mean, sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-    var = torch.clamp(sq - mean.square(), min=0)
-    mul = torch.rsqrt(var + bn.eps) * bn.weight
-    y = (xf - mean[:, None, None]) * mul[:, None, None]
-    return (y + bn.bias[:, None, None]).to(x.dtype), mean, var
+    global batch's: the sums and the count are summed over the ranks
+    (`multihost.sum_over_ranks`), and so are the backward's per-channel
+    sums (`multihost.sum_bn_grads`), SyncBatchNorm's pattern
+    (`ops.bn_train.bn_train`)."""
+    return bn_train(x, bn.weight, bn.bias, bn.eps, relu=relu,
+                    residual=residual)
+
+
+def train_norms(arch: str, batch: int, crop: int) -> list:
+    """[(name, (N, C, H, W), form)] of each train-mode BatchNorm of `arch`
+    at `batch` square images of `crop` (even) px, in the forward's order;
+    form "relu", "residual" (relu(y + residual)) or "plain"."""
+    h = crop // 2
+    out = [("bn1", (batch, 64, h, h), "relu")]
+    h = (h - 1) // 2 + 1                       # the 3x3/2 max-pool, pad 1
+    inplanes = 64
+    for stage, n_blocks in enumerate(STAGE_SIZES[arch]):
+        planes = 64 * 2 ** stage
+        for b in range(n_blocks):
+            stride = 2 if stage > 0 and b == 0 else 1
+            ho = (h - 1) // stride + 1
+            name, wide = f"layer{stage + 1}.{b}", planes * Bottleneck.expansion
+            out += [(f"{name}.bn1", (batch, planes, h, h), "relu"),
+                    (f"{name}.bn2", (batch, planes, ho, ho), "relu")]
+            if inplanes != wide or stride != 1:
+                out.append((f"{name}.downsample.1", (batch, wide, ho, ho),
+                            "plain"))
+            out.append((f"{name}.bn3", (batch, wide, ho, ho), "residual"))
+            inplanes, h = wide, ho
+    return out
 
 
 @torch.no_grad()
@@ -137,16 +158,15 @@ class Bottleneck(nn.Module):
     def forward_train(self, x):
         """Train mode: (y, mean, var, mean, var, ...), the batch statistics
         of `norms()` in order."""
-        y, *s1 = batch_norm_train(conv(x, self.conv1), self.bn1)
-        y, *s2 = batch_norm_train(conv(torch.relu(y), self.conv2), self.bn2)
-        y, *s3 = batch_norm_train(conv(torch.relu(y), self.conv3), self.bn3)
-        stats = s1 + s2 + s3
-        res = x
+        y, *s1 = batch_norm_train(conv(x, self.conv1), self.bn1, relu=True)
+        y, *s2 = batch_norm_train(conv(y, self.conv2), self.bn2, relu=True)
+        res, sd = x, []
         if self.downsample is not None:
             res, *sd = batch_norm_train(conv(x, self.downsample[0]),
                                         self.downsample[1])
-            stats += sd
-        return (torch.relu(y + res), *stats)
+        y, *s3 = batch_norm_train(conv(y, self.conv3), self.bn3, relu=True,
+                                  residual=res)
+        return (y, *s1, *s2, *s3, *sd)
 
 
 class ResNet(nn.Module):
@@ -187,8 +207,8 @@ class ResNet(nn.Module):
         return feats.to(self.dtype).float()
 
     def _trunk_train(self, x):
-        x, *stats = batch_norm_train(conv(x, self.conv1), self.bn1)
-        x = F.max_pool2d(torch.relu(x), 3, stride=2, padding=1)
+        x, *stats = batch_norm_train(conv(x, self.conv1), self.bn1, relu=True)
+        x = F.max_pool2d(x, 3, stride=2, padding=1)
         bns = [self.bn1]
         for block in self.blocks():
             if self.remat:

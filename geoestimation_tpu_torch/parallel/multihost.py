@@ -371,29 +371,30 @@ def device_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-class _SumOverRanks(torch.autograd.Function):
-    """y = the sum of x over the ranks; the backward sums the gradients over
-    the ranks too, since every rank's y depends on every rank's x."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
 def sum_over_ranks(t: torch.Tensor) -> torch.Tensor:
-    """Sum of `t` over the data axis (`data_group`), differentiable (the
-    gradient is summed over those ranks); `t` itself in one process."""
+    """The train-mode BatchNorm's per-channel sums of x and of x^2 and its
+    element count summed over the data axis (`data_group`), outside
+    autograd (`sum_bn_grads` sums their gradients in the backward); `t`
+    itself in one process."""
     group = data_group()
-    return t if group is None else _SumOverRanks.apply(t, group)
+    if group is None:
+        return t
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def sum_bn_grads(t: torch.Tensor) -> torch.Tensor:
+    """The train-mode BatchNorm backward's gradients with respect to the
+    sums that `sum_over_ranks` summed, per channel, summed over the data
+    axis (`data_group`), outside autograd: every rank's statistics depend
+    on every rank's rows. `t` itself in one process."""
+    group = data_group()
+    if group is None:
+        return t
+    t = t.clone()
+    dist.all_reduce(t, group=group)
+    return t
 
 
 def _through_flat(grads, collective):

@@ -17,11 +17,13 @@ The port of the JAX package's `tools/train_roofline.py`, with its flags.
    (`torch.utils.flop_counter.FlopCounterMode`), and `bytes_accessed`, the
    bytes of the input and output tensors of every aten operator the step
    dispatches (`BytesAccessed`; views and uninitialized allocations move
-   none and are left out). Eager PyTorch fuses nothing, so this is the
-   unfused counterpart of XLA's per-op "bytes accessed" of the JAX tool:
-   each operator's inputs read and its outputs written once. The ideal is
-   the larger of flops / peak_flops and bytes / peak_bw; the peaks default
-   to an H100 SXM's bf16 tensor-core rate and HBM3 rate (`tools/card.py`).
+   none and are left out), and the bytes the train-mode BatchNorm kernels
+   count for themselves (`ops.bn_train`). Eager PyTorch fuses nothing else,
+   so this is the nearly unfused counterpart of XLA's per-op "bytes
+   accessed" of the JAX tool: each operator's inputs read and its outputs
+   written once. The ideal is the larger of flops / peak_flops and bytes /
+   peak_bw; the peaks default to an H100 SXM's bf16 tensor-core rate and
+   HBM3 rate (`tools/card.py`).
    It runs on a CUDA card only and raises without one.
 3. `--collectives N`: N ranks on the CPU (gloo, spawned here) each take one
    data-axis train step of the port at `--cpu_crop` px on its rows of the
@@ -30,7 +32,8 @@ The port of the JAX package's `tools/train_roofline.py`, with its flags.
    payload bytes and caller, then bucketed: `grad_psum` (the flattened
    gradient all-reduce, `multihost.all_reduce_grads`), `bn_stats` (the
    BatchNorm sums over the ranks in `models/resnet.py` `batch_norm_train`,
-   `multihost.sum_over_ranks`, and their backward's sum) and
+   `multihost.sum_over_ranks`, and the backward's per-channel sums,
+   `multihost.sum_bn_grads`) and
    `other_small` (the loss's valid counts and the metrics). The
    counterpart of the JAX tool's all-reduces in the step lowered over an
    N-device virtual CPU mesh; there XLA's combiner may merge or split
@@ -52,6 +55,7 @@ import torch
 from torch.utils._pytree import tree_leaves
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..ops.bn_train import bn_train
 from .card import H100_BF16_FLOPS, H100_BYTES_PER_S
 
 RANK_TIMEOUT_S = 600
@@ -85,14 +89,19 @@ class BytesAccessed(TorchDispatchMode):
 
 def count_step(step):
     """(flops, bytes_accessed, operators) of one call of step() each: the
-    counts of two consecutive steps."""
+    counts of two consecutive steps, the train-mode BatchNorm kernels'
+    launches and bytes among them."""
     from torch.utils.flop_counter import FlopCounterMode
 
     with FlopCounterMode(display=False) as flops:
         step()
+    launches, kernel_bytes = bn_train.launches, bn_train.bytes
     with BytesAccessed() as nbytes:
         step()
-    return float(flops.get_total_flops()), float(nbytes.bytes), nbytes.ops
+    # the BatchNorm kernels dispatch no aten operator: they count their own
+    return (float(flops.get_total_flops()),
+            float(nbytes.bytes + bn_train.bytes - kernel_bytes),
+            nbytes.ops + bn_train.launches - launches)
 
 
 def roofline(args):
@@ -139,7 +148,7 @@ def _bucket(frame):
         frame = frame.f_back
     if "all_reduce_grads" in names:
         return "grad_psum"
-    if "batch_norm_train" in names or "_SumOverRanks.backward" in names:
+    if "batch_norm_train" in names or "sum_bn_grads" in names:
         return "bn_stats"
     return "other_small"
 

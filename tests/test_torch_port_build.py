@@ -77,9 +77,16 @@ def test_the_kernels_share_one_core_and_call_no_library():
     """Both fused-bottleneck sources include the shared sm_90a core and keep
     no copy of its helpers; the int8 convolution keeps its own: s8 wgmma on
     shared-memory tiles that TMA brings in, completed on mbarriers, with its
-    epilogue's fmas written out; none reaches a library kernel."""
+    epilogue's fmas written out; the train-mode BatchNorm's needs neither
+    and adds its blocks' sums with integer tickets, no float atomics; none
+    reaches a library kernel."""
     fused = ["fused_bottleneck", "fused_bottleneck_s2"]
-    assert build.sources() == ["conv_s8"] + fused
+    assert build.sources() == ["bn_train", "conv_s8"] + fused
+    bn = (build.CSRC_DIR / "bn_train.cu").read_text()
+    assert "bottleneck_sm90.cuh" not in bn and "wgmma" not in bn
+    tickets = [line.split("atomicAdd(")[1].split(",")[0]
+               for line in bn.splitlines() if "atomicAdd(" in line]
+    assert tickets == ["counter + blockIdx.x"]
     core = (build.CSRC_DIR / "bottleneck_sm90.cuh").read_text()
     assert "wgmma.mma_async" in core and "cp.async.bulk.tensor" in core
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)

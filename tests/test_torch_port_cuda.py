@@ -496,3 +496,77 @@ def test_qat_step_on_the_card_launches_no_kernel(cuda):
         float(m["anchor_kl"]))
     assert sum(not torch.equal(a, b) for a, b in zip(leaves, before)) \
         > len(leaves) // 2
+
+
+port_bn = importlib.import_module("geoestimation_tpu_torch.ops.bn_train")
+port_resnet = importlib.import_module("geoestimation_tpu_torch.models.resnet")
+# each distinct (shape, form) of ResNet50's train-mode BatchNorms at batch
+# 256 and 224 px
+BN_SHAPES = sorted({(shape, form) for _, shape, form in
+                    port_resnet.train_norms("resnet50", 256, 224)})
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shape, form", BN_SHAPES)
+def test_bn_train_kernels_match_plain_at_resnet50_train_shapes(cuda, shape,
+                                                               form, dtype):
+    """Each of the four kernels against its plain version on the same
+    inputs, with chip_smoke.py phase 14's gates; the reductions the same
+    bits on a second run."""
+    smoke = importlib.import_module("chip_smoke")
+    smoke.check_bn_train(shape, form, getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("case", ["relu", "identity", "projection"])
+def test_bn_train_function_on_the_card_matches_the_cpu(cuda, dtype, case):
+    """The autograd Function at a ragged shape (N 3, 9 x 7, C 64): out,
+    statistics and every gradient of the card's kernels (4 launches a
+    BatchNorm) within rounding of the plain version's on the CPU."""
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+
+    def maps(c=64):
+        a = rng.normal(0.3, 1.5, (3, 9, 7, c)).astype(np.float32)
+        return torch.from_numpy(a).to(dt).permute(0, 3, 1, 2)
+
+    x, res, xd, cot = maps(), maps(), maps(), maps()
+    params = [torch.from_numpy(rng.normal(m, 0.3, 64).astype(np.float32))
+              for m in (1, 0, 1, 0)]
+
+    def run(device):
+        leaves = [t.to(device).requires_grad_() for t in
+                  (x, res, xd, *params)]
+        xl, rl, xdl, w, b, wd, bd = leaves
+        if case == "projection":
+            rl = port_bn.bn_train(xdl, wd, bd, 1e-5)[0]
+        out, mean, var = port_bn.bn_train(
+            xl, w, b, 1e-5, relu=True,
+            residual=None if case == "relu" else rl)
+        grads = torch.autograd.grad((out.float() * cot.to(device).float())
+                                    .sum(), leaves, allow_unused=True)
+        return [t.detach().cpu().float() for t in (out, mean, var)] + [
+            torch.zeros(1) if g is None else g.cpu().float() for g in grads]
+
+    launched = port_bn.bn_train.launches
+    got = run(cuda)
+    torch.cuda.synchronize()
+    n_norms = 2 if case == "projection" else 1
+    assert port_bn.bn_train.launches - launched == 4 * n_norms
+    want = run("cpu")
+    tol = 2 ** -7 if dt == torch.bfloat16 else 1e-5
+    for g, w in zip(got, want):
+        scale = max(float(w.abs().max()), 1e-6)
+        assert float((g - w).abs().max()) <= tol * scale
+
+
+def test_bn_train_refuses_what_the_kernels_do_not_take(cuda):
+    x = torch.zeros(2, 24, 4, 4, dtype=torch.bfloat16, device=cuda)
+    w = torch.ones(24, device=cuda)
+    with pytest.raises(ValueError, match="take C"):
+        port_bn.bn_train(x.contiguous(memory_format=torch.channels_last), w,
+                         w, 1e-5)
+    with pytest.raises(ValueError, match="channels-last"):
+        port_bn.bn_train(torch.zeros(2, 64, 4, 4, dtype=torch.bfloat16,
+                                     device=cuda), w.repeat(3)[:64],
+                         w.repeat(3)[:64], 1e-5)

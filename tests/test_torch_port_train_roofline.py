@@ -59,21 +59,22 @@ def audit():
 
 def test_collective_audit_counts_from_the_jax_model(audit, jax_shapes):
     """grad_psum: one all-reduce of every float32 gradient; bn_stats: each
-    BatchNorm's (sum, sum of squares, count) in the forward and their
-    gradients in the backward, 2C + 1 float32 each way; the rest: the
-    loss's valid counts and the metrics."""
+    BatchNorm's (sum, sum of squares, count) in the forward, 2C + 1
+    float32, and the backward's per-channel sums of the gradient and of its
+    product with the normalized input, 2C float32; the rest: the loss's
+    valid counts and the metrics."""
     n_params, channels = jax_shapes
     b = audit["buckets"]
     assert len(channels) == 17
     assert b["grad_psum"] == {"n": 1, "bytes": 4 * n_params}
     assert b["bn_stats"] == {"n": 2 * len(channels),
-                             "bytes": 2 * sum(4 * (2 * c + 1)
-                                              for c in channels)}
+                             "bytes": sum(4 * (2 * c + 1) + 4 * 2 * c
+                                          for c in channels)}
     assert b["other_small"]["n"] == 2
     assert set(audit["callers"]) == {
         "all_reduce in all_reduce_grads.<locals>.reduce",
-        "all_reduce in _SumOverRanks.forward",
-        "all_reduce in _SumOverRanks.backward", "all_reduce in device_sum"}
+        "all_reduce in sum_over_ranks",
+        "all_reduce in sum_bn_grads", "all_reduce in device_sum"}
     total = sum(v["bytes"] for v in b.values())
     assert audit["bn_share_of_collective_bytes"] == round(
         b["bn_stats"]["bytes"] / total, 6)
