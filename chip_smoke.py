@@ -9,6 +9,8 @@
                                              # kernel build)
     python3 chip_smoke.py --phase 14         # phase 14 alone (after the
                                              # kernel build)
+    python3 chip_smoke.py --phase 15         # phase 15 alone (after the
+                                             # kernel build)
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -206,7 +208,16 @@ Phases, in order; any failure exits non-zero and prints no result line:
      bound (the bytes of its maps), the plain version's four steps and
      cuDNN's train-mode BatchNorm forward and backward (the yardstick,
      never called by the port), summed over a step;
- 15. one JSON line describing every kernel (with its launches per forward
+ 15. the train step's host path: `Trainer`'s `train_fn` on baseM (ResNet50
+     bf16, batch 256, seeded weights and two seeded host batches): SGD over
+     all leaves (`torch._foreach_*`) bit for bit the per-leaf form, on
+     leaves at the model's shapes in float32 and bf16 with and without
+     decay and nesterov, and on a copy of the parameters that the per-leaf
+     form updates with the gradients of 3 train steps; then 3 warmed-up
+     steps under `torch.cuda.set_sync_debug_mode("error")` (nothing in a
+     step waits for the card), 212 `bn_train` launches a step, and the ms
+     of 10 steps beside the host's ms to queue each;
+ 16. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
@@ -230,6 +241,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.request
 
 import numpy as np
@@ -276,6 +288,7 @@ from geoestimation_tpu_torch.tools.card import (
     require_cuda,
     time_ms,
 )
+from geoestimation_tpu_torch.train.loop import Trainer
 from geoestimation_tpu_torch.train.optim import Optimizer, constant_schedule
 from geoestimation_tpu_torch.train.step import train_step
 from geoestimation_tpu_torch.utils import spans
@@ -3238,6 +3251,156 @@ def phase_bn_train(label):
     return entry
 
 
+# -- phase 15 ------------------------------------------------------------------
+
+HOST_CHECKED_STEPS = 3     # the steps the per-leaf SGD follows bit for bit
+HOST_TIMED_STEPS = 10
+SGD_CASES = [(0.0, False), (1e-4, False), (1e-4, True)]   # (decay, nesterov)
+
+
+@torch.no_grad()
+def _sgd_per_leaf(opt, lr):
+    """SGD leaf by leaf, six launches each: the arrangement the update over
+    all leaves at once (`Optimizer.step`) keeps the bits of."""
+    for p, t in zip(opt.params, opt.slots["trace"]):
+        u = p.grad
+        if opt.weight_decay:
+            u = u + opt.weight_decay * p
+        t.mul_(opt.momentum).add_(u)
+        p.sub_(lr * (u + opt.momentum * t if opt.nesterov else t))
+
+
+def _sgd_on_leaves(shapes):
+    """Three updates of leaves at the model's shapes, float32 and bf16, at
+    each of SGD_CASES: [(dtype, decay, nesterov)] of those whose leaves or
+    traces differ from the per-leaf form's by a bit."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    schedule = lambda count: 0.01 * (count + 1) / 3   # noqa: E731
+    off = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for wd, nesterov in SGD_CASES:
+            init = [torch.randn(s, generator=gen, device="cuda").to(dtype)
+                    for s in shapes]
+            got, want = ([t.clone() for t in init] for _ in range(2))
+            kw = dict(momentum=0.9, nesterov=nesterov, weight_decay=wd)
+            opt = Optimizer(got, schedule, **kw)
+            ref = Optimizer(want, schedule, **kw)
+            for k in range(3):
+                for p, q in zip(got, want):
+                    p.grad = torch.randn(p.shape, generator=gen,
+                                         device="cuda").to(dtype)
+                    q.grad = p.grad.clone()
+                opt.step()
+                _sgd_per_leaf(ref, schedule(k))
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got + opt.slots["trace"], want + ref.slots["trace"])):
+                off.append((str(dtype).split(".")[-1], wd, nesterov))
+    return off
+
+
+def _host_path_trainer(tmp):
+    """A Trainer of baseM on the card over seeded partitionings at the
+    published counts written under `tmp`, its state from the config's seed
+    and `train_fn`, and two seeded batches as the loader hands them
+    (uint8 256-px images and int64 labels in host memory)."""
+    parts = world.seeded_partitionings(np.random.default_rng(world.SEED + 5))
+    config = load_config(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "configs", "baseM.yml"))
+    files = [os.path.join(tmp, f"{p.name}.csv") for p in parts]
+    for p, f in zip(parts, files):
+        p.to_csv(f)
+    config.model_params.partitionings.files = files
+    config.model_params.partitionings.shortnames = [p.name for p in parts]
+    config.train_params.checkpoint_dir = os.path.join(tmp, "ckpt")
+    trainer = Trainer(config, log_fn=lambda *_: None, device="cuda")
+    state = trainer.initial_state(steps_per_epoch=1000)
+    rng = np.random.default_rng(world.SEED + 15)
+    batches = [types.SimpleNamespace(
+        images=rng.integers(0, 256, (TRAIN_BATCH, 256, 256, 3), np.uint8),
+        labels=np.stack([rng.integers(0, n, TRAIN_BATCH)
+                         for n in world.REAL_CLASS_COUNTS])) for _ in range(2)]
+    return trainer, state, trainer._train_fn(), batches
+
+
+def phase_host_path(label):
+    """The train step's host path (module docs, 15)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, state, train_fn, batches = _host_path_trainer(tmp)
+    opt = state.optimizer
+    shapes = [tuple(p.shape) for p in opt.params]
+    off_leaves = _sgd_on_leaves(shapes)
+
+    # the per-leaf form follows the checked steps on a copy of the
+    # parameters, fed the gradients the step computed
+    shadow = Optimizer([p.detach().clone() for p in opt.params],
+                       opt.schedule, momentum=opt.momentum,
+                       nesterov=opt.nesterov, weight_decay=opt.weight_decay)
+    update = opt.step
+
+    def update_both():
+        for q, p in zip(shadow.params, opt.params):
+            q.grad = p.grad.clone()
+        _sgd_per_leaf(shadow, opt.schedule(opt.count))
+        update()
+
+    opt.step = update_both
+    for k in range(HOST_CHECKED_STEPS):
+        state, _ = train_fn(state, batches[k % 2])
+    del opt.step
+    torch.cuda.synchronize()
+    off_steps = [n for (n, p), q, t, u in zip(
+        state.model.named_parameters(), shadow.params, opt.slots["trace"],
+        shadow.slots["trace"]) if not (torch.equal(p, q) and torch.equal(t, u))]
+    del shadow
+
+    # warmed up: no call inside a step may wait for the card
+    ops_bn.bn_train.launches = 0
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(HOST_CHECKED_STEPS):
+            state, metrics = train_fn(state, batches[k % 2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    bn_per_step = ops_bn.bn_train.launches / HOST_CHECKED_STEPS
+    loss = float(metrics["loss"])
+
+    # the host's time to queue a step against the step's time on the card
+    torch.cuda.synchronize()
+    host_s = []
+    start = time.perf_counter()
+    for k in range(HOST_TIMED_STEPS):
+        t = time.perf_counter()
+        state, metrics = train_fn(state, batches[k % 2])
+        host_s.append(time.perf_counter() - t)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - start) / HOST_TIMED_STEPS
+    line = {
+        "what": "Trainer train_fn, ResNet50 baseM bf16 at batch "
+                f"{TRAIN_BATCH}, SGD over all leaves, pinned feed",
+        "leaves": len(shapes),
+        "sgd_cases_off_per_leaf": off_leaves,
+        "checked_steps": HOST_CHECKED_STEPS,
+        "parameters_off_per_leaf": off_steps[:5],
+        "sync_debug_error_steps": HOST_CHECKED_STEPS,
+        "bn_train_launches_per_step": bn_per_step, "loss": loss,
+        "ms_per_step": step_ms,
+        "images_per_s": TRAIN_BATCH * 1e3 / step_ms,
+        "host_ms_per_call": [round(1e3 * x, 2) for x in host_s],
+        "seconds": time.perf_counter() - t0, "card": label}
+    log("train host path " + json.dumps(line))
+    del state, trainer, train_fn
+    if off_leaves or off_steps or bn_per_step != BN_LAUNCHES or \
+            not np.isfinite(loss):
+        raise RuntimeError(f"train host path: SGD cases off the per-leaf "
+                           f"form {off_leaves}, parameters off it after "
+                           f"{HOST_CHECKED_STEPS} steps {off_steps[:5]}, "
+                           f"{bn_per_step} bn_train launches a step (want "
+                           f"{BN_LAUNCHES}), loss {loss}")
+    return line
+
+
 def main():
     t0 = time.perf_counter()
     label, ptxas = phase_device()
@@ -3265,6 +3428,7 @@ def main():
         demo = phase_prep(label, tmp)
     e2e, stem = phase_tools(label)
     kernels.append(phase_bn_train(label))
+    phase_host_path(label)
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
@@ -3405,6 +3569,17 @@ def phase_13_alone():
         "wall_s": time.perf_counter() - t0, "card": label}}), flush=True)
 
 
+def phase_15_alone():
+    """`python3 chip_smoke.py --phase 15`: phase 1's build, then phase 15;
+    one line of its wall after phase 15's own lines."""
+    label, _ = phase_device()
+    t0 = time.perf_counter()
+    line = phase_host_path(label)
+    print(json.dumps({"phase_15": {
+        "ok": True, "ms_per_step": line["ms_per_step"],
+        "wall_s": time.perf_counter() - t0, "card": label}}), flush=True)
+
+
 def phase_14_alone():
     """`python3 chip_smoke.py --phase 14`: phase 1's build, then phase 14;
     one line of its wall after phase 14's own lines."""
@@ -3430,5 +3605,7 @@ if __name__ == "__main__":
         phase_13_alone()
     elif sys.argv[1:] == ["--phase", "14"]:
         phase_14_alone()
+    elif sys.argv[1:] == ["--phase", "15"]:
+        phase_15_alone()
     else:
         main()

@@ -26,12 +26,26 @@ import torch
 from .decode import IMAGENET_MEAN, IMAGENET_STD
 
 
+def _upload(t, device):
+    """The host tensor `t` on `device`; to a card from pinned memory, in a
+    copy that does not wait for the card (from pageable memory it would
+    wait for every launch queued before it)."""
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mean_std(device):
+    """The float32 ImageNet mean and std on the 0-255 scale, made once per
+    device."""
+    return tuple(_upload(torch.tensor(v, dtype=torch.float32), device) * 255.0
+                 for v in (IMAGENET_MEAN, IMAGENET_STD))
+
+
 def normalize(images, dtype=torch.bfloat16):
     """uint8 (..., H, W, 3) -> ImageNet-normalized `dtype` tensor."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32,
-                        device=images.device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32,
-                       device=images.device) * 255.0
+    mean, std = _mean_std(images.device)
     return ((images.to(torch.float32) - mean) / std).to(dtype)
 
 
@@ -136,6 +150,27 @@ def crop_draws(gen: torch.Generator, b, h, w, crop=224, crop_scale=None):
     return {"size": size, "tops": tops, "lefts": lefts, "flips": flips}
 
 
+def _pack_draws(draws):
+    """The offsets and flips of `crop_draws`' draws as one (3, b) int64
+    tensor: tops, lefts, flips."""
+    return torch.stack([draws[k].to(torch.int64)
+                        for k in ("tops", "lefts", "flips")])
+
+
+def _unpack_draws(size, packed):
+    return {"size": size, "tops": packed[0], "lefts": packed[1],
+            "flips": packed[2] != 0}
+
+
+def _draws_on(draws, device):
+    """`crop_draws`' draws with the offsets and flips on `device`: host
+    draws bound for a card go up packed, in one `_upload`; others are left
+    as they are (`_windows` and `_flip` move them)."""
+    if draws["tops"].device == device or device.type != "cuda":
+        return draws
+    return _unpack_draws(draws["size"], _upload(_pack_draws(draws), device))
+
+
 def _windows(images, size, tops, lefts):
     """(B, H, W, C) -> (B, size, size, C): each image's window at its own
     offset, one gather."""
@@ -157,12 +192,14 @@ def crop_flip(images_u8, size, tops, lefts, flips):
     return _flip(_windows(images_u8, size, tops, lefts), flips)
 
 
-@functools.lru_cache(maxsize=32)
-def _triangle_weights(n_in, n_out):
+@functools.lru_cache(maxsize=64)
+def _triangle_weights(n_in, n_out, device):
     """(n_in, n_out) float32 weights of `jax.image.resize(..., "bilinear")`
     along one axis: a triangle kernel, widened by n_in / n_out when it
     downsamples (antialiasing), each column normalized, in the float32
-    arithmetic of `jax.image.scale.compute_weight_mat`."""
+    arithmetic of `jax.image.scale.compute_weight_mat`; on `device`, made
+    once for each size (a step's window is one of `resized_crop_sizes`'
+    few)."""
     inv_scale = np.float32(1.0 / (n_out / n_in))
     kernel_scale = max(inv_scale, np.float32(1.0))
     sample_f = ((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
@@ -174,8 +211,8 @@ def _triangle_weights(n_in, n_out):
     weights = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                        weights / np.where(total != 0, total, 1), 0)
     inside = (sample_f >= -0.5) & (sample_f <= n_in - 0.5)
-    return torch.from_numpy(
-        np.where(inside[None, :], weights, 0).astype(np.float32))
+    return _upload(torch.from_numpy(
+        np.where(inside[None, :], weights, 0).astype(np.float32)), device)
 
 
 def resize_bilinear(images, size):
@@ -185,7 +222,7 @@ def resize_bilinear(images, size):
     s = images.shape[1]
     if s == size:
         return images
-    w = _triangle_weights(s, size).to(images.device)
+    w = _triangle_weights(s, size, images.device)
     return torch.einsum("bhwc,hH,wW->bHWc", images, w, w)
 
 
@@ -201,6 +238,7 @@ def resized_crop_flip(images_u8, size, tops, lefts, flips, crop=224):
 
 def augment(images_u8, draws, crop=224, crop_scale=None):
     """The augmentation `crop_draws` drew, applied on the device."""
+    draws = _draws_on(draws, images_u8.device)
     if _resized(crop_scale):
         return resized_crop_flip(images_u8, crop=crop, **draws)
     return crop_flip(images_u8, **draws)

@@ -105,11 +105,14 @@ def train_norms(arch: str, batch: int, crop: int) -> list:
 @torch.no_grad()
 def update_running_stats(bns, stats, momentum=BN_MOMENTUM):
     """running = momentum * running + (1 - momentum) * batch, for each
-    BatchNorm of `bns` and its (mean, var) in the flat list `stats`."""
-    for bn, mean, var in zip(bns, stats[0::2], stats[1::2]):
-        bn.running_mean.copy_(momentum * bn.running_mean
-                              + (1 - momentum) * mean)
-        bn.running_var.copy_(momentum * bn.running_var + (1 - momentum) * var)
+    BatchNorm of `bns` and its (mean, var) in the flat list `stats`: over
+    all of them at once (`torch._foreach_*`, a few launches on a card),
+    each product and the sum rounded in float32 as one BatchNorm's would
+    be."""
+    running = [bn.running_mean for bn in bns] + [bn.running_var for bn in bns]
+    batch = list(stats[0::2]) + list(stats[1::2])
+    torch._foreach_mul_(running, momentum)
+    torch._foreach_add_(running, torch._foreach_mul(batch, 1 - momentum))
 
 
 def conv(x, layer: nn.Conv2d):

@@ -323,6 +323,9 @@ class _BatchNormTrain(torch.autograd.Function):
         ctx.eps, ctx.form = eps, form
         ctx.save_for_backward(x, None if form == PLAIN else out, sums, weight)
         ctx.mark_non_differentiable(mean, var)
+        # the backward ignores mean's and var's gradients: no zeros made
+        # and filled for them on every step
+        ctx.set_materialize_grads(False)
         return out, mean, var
 
     @staticmethod

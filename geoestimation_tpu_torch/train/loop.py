@@ -66,6 +66,37 @@ def _on_layout(method):
     return run
 
 
+class HostFeed:
+    """Host arrays onto `device`. On a card each array is copied into one
+    of two pinned staging buffers kept for its shape and dtype and sent
+    from there without waiting for the card (a copy from pageable memory
+    waits for the work queued before it); an event recorded after each
+    send guards its buffer, which the next array but one of that shape and
+    dtype reuses. Elsewhere the array is moved as it is."""
+
+    def __init__(self, device):
+        self.device = device
+        self._slots = {}     # (shape, dtype) -> [(pinned buffer, event)] * 2
+
+    def __call__(self, arr):
+        host = torch.as_tensor(arr)
+        if self.device.type != "cuda":
+            return host.to(self.device, non_blocking=True)
+        key = (tuple(host.shape), host.dtype)
+        slots = self._slots.get(key)
+        if slots is None:
+            slots = self._slots[key] = [
+                (torch.empty(host.shape, dtype=host.dtype, pin_memory=True),
+                 torch.cuda.Event()) for _ in range(2)]
+        buf, sent = slots[0]
+        slots.reverse()
+        sent.synchronize()      # this buffer's send of two feeds ago
+        buf.copy_(host)
+        out = buf.to(self.device, non_blocking=True)
+        sent.record(torch.cuda.current_stream(self.device))
+        return out
+
+
 class Trainer:
     def __init__(self, config, search_dirs=(), log_fn=print, device="cuda"):
         self.config = config
@@ -106,6 +137,7 @@ class Trainer:
                                       stdout=lambda s: None)
                         if self.proc_id == 0 else None)
         self.batch_wait_s = 0.0   # host time spent waiting for train batches
+        self._feed = HostFeed(self.device)
 
     # -- state --------------------------------------------------------------
 
@@ -230,9 +262,6 @@ class Trainer:
         if self.n_procs > 1:
             return multihost.LockstepSlicer(batcher, p, n)
         return batcher
-
-    def _feed(self, arr):
-        return torch.as_tensor(arr).to(self.device, non_blocking=True)
 
     def _timed(self, batcher):
         """The batches of `batcher`, adding the host's wait for each to

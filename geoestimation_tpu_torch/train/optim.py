@@ -8,7 +8,8 @@ JAX package builds, on the parameters in place:
 
   * SGD: `add_decayed_weights(wd)` on every parameter (u = g + wd * p),
     then the momentum trace t = u + momentum * t (the first trace is u;
-    with nesterov the update is u + momentum * t), then p -= lr * update;
+    with nesterov the update is u + momentum * t), then p -= lr * update,
+    over all the leaves at once;
   * AdamW: `scale_by_adam` (bias-corrected moments, eps outside the root),
     then `add_decayed_weights`, then p -= lr * update.
 """
@@ -100,12 +101,7 @@ class Optimizer:
     def step(self):
         lr = self.schedule(self.count)
         if self.name == "sgd":
-            for p, t in zip(self.params, self.slots["trace"]):
-                u = p.grad
-                if self.weight_decay:
-                    u = u + self.weight_decay * p
-                t.mul_(self.momentum).add_(u)
-                p.sub_(lr * (u + self.momentum * t if self.nesterov else t))
+            self._sgd(lr)
         else:
             # the bias corrections in float32, as optax computes them
             n = np.float32(self.count + 1)
@@ -121,6 +117,27 @@ class Optimizer:
                     u = u + self.weight_decay * p
                 p.sub_(lr * u)
         self.count += 1
+
+    def _sgd(self, lr):
+        """The SGD update over every leaf at once (`torch._foreach_*`: a few
+        launches for all of them on a card), each operation rounded as the
+        per-leaf form rounds it: u = g + (wd * p), t = (t * m) + u,
+        p = p - (lr * t), with nesterov p = p - (lr * (u + (m * t)))."""
+        params, trace = self.params, self.slots["trace"]
+        u = [p.grad for p in params]
+        if self.weight_decay:
+            u = torch._foreach_add(u, torch._foreach_mul(params,
+                                                         self.weight_decay))
+        # t * m in place with m a float64 host scalar tensor: the plain
+        # scalar form rounds m to a bf16 trace's dtype first on the CPU
+        torch._foreach_mul_(trace, torch.tensor(self.momentum,
+                                                dtype=torch.float64))
+        torch._foreach_add_(trace, u)
+        step = trace
+        if self.nesterov:
+            step = torch._foreach_add(u, torch._foreach_mul(trace,
+                                                            self.momentum))
+        torch._foreach_sub_(params, torch._foreach_mul(step, lr))
 
     def state_dict(self):
         return {"count": self.count, "slots": self.slots}

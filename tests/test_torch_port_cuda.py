@@ -9,6 +9,7 @@ that has none:
 """
 
 import importlib
+import time
 
 import numpy as np
 import pytest
@@ -570,3 +571,31 @@ def test_bn_train_refuses_what_the_kernels_do_not_take(cuda):
         port_bn.bn_train(torch.zeros(2, 64, 4, 4, dtype=torch.bfloat16,
                                      device=cuda), w.repeat(3)[:64],
                          w.repeat(3)[:64], 1e-5)
+
+
+def test_host_feed_keeps_a_staging_buffer_until_its_copy_is_done(cuda):
+    """Feeds of one shape queued behind a sleeping kernel: the first two go
+    up from the two pinned staging buffers without waiting for the card,
+    the third reuses the first one's buffer only once that copy is done,
+    and every array arrives as it was."""
+    from geoestimation_tpu_torch.train.loop import HostFeed
+
+    feed = HostFeed(cuda)
+    arrays = [np.full((64, 256, 256, 3), k, np.uint8) for k in range(1, 6)]
+    feed(arrays[0])
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(10 ** 7)
+    end.record()
+    end.synchronize()
+    cycles_per_ms = 10 ** 7 / start.elapsed_time(end)
+    torch.cuda._sleep(int(500 * cycles_per_ms))
+    t0 = time.perf_counter()
+    outs = [feed(a) for a in arrays[:2]]
+    queued_s = time.perf_counter() - t0
+    outs += [feed(a) for a in arrays[2:]]
+    waited_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    assert queued_s < 0.25 < waited_s
+    for arr, out in zip(arrays, outs):
+        assert torch.equal(out.cpu(), torch.from_numpy(arr))

@@ -31,10 +31,11 @@ from geoestimation_tpu_torch.convert import from_jax_variables
 from geoestimation_tpu_torch.data import loader, shards
 from geoestimation_tpu_torch.geo import load_partitionings
 from geoestimation_tpu_torch.ingest import pipeline
-from geoestimation_tpu_torch.models import classifier, isn
+from geoestimation_tpu_torch.models import classifier, isn, resnet
 from geoestimation_tpu_torch.models.isn import ISNClassifier
 from geoestimation_tpu_torch.tools import world
-from geoestimation_tpu_torch.train import optim, step
+from geoestimation_tpu_torch.ingest.decode import IMAGENET_MEAN, IMAGENET_STD
+from geoestimation_tpu_torch.train import loop, optim, step
 from geoestimation_tpu_torch.train.init import init_weights
 from geoestimation_tpu_torch.utils import logging as port_logging
 from geoestimation_tpu_torch.utils.config import load_config
@@ -264,6 +265,70 @@ def test_draws_depend_on_seed_and_step_alone(crop_scale):
         u8, 8, 2, crop=48, dtype=torch.float32, crop_scale=crop_scale))
 
 
+def test_normalize_constants_are_made_once():
+    """`normalize` takes its mean and std from a cache per device, the
+    float32 values it made on every call before, with the same bits out."""
+    u8 = torch.from_numpy(RNG.integers(0, 256, (2, 8, 8, 3), dtype=np.uint8))
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0
+    for dtype in (torch.float32, torch.bfloat16):
+        want = ((u8.to(torch.float32) - mean) / std).to(dtype)
+        assert torch.equal(pipeline.normalize(u8, dtype), want)
+    cpu = torch.device("cpu")
+    assert pipeline._mean_std(cpu) is pipeline._mean_std(cpu)
+    assert torch.equal(pipeline._mean_std(cpu)[0], mean)
+
+
+@pytest.mark.parametrize("size", [207, 235, 256])
+def test_triangle_weights_are_made_once_per_size(size):
+    """A window size's weights come from the cache, the bits a fresh
+    computation gives; the resize reads them there."""
+    cpu = torch.device("cpu")
+    w = pipeline._triangle_weights(size, 224, cpu)
+    assert w is pipeline._triangle_weights(size, 224, cpu)
+    fresh = pipeline._triangle_weights.__wrapped__(size, 224, cpu)
+    assert w.dtype == torch.float32 and torch.equal(w, fresh)
+    x = torch.from_numpy(RNG.random((1, size, size, 3), dtype=np.float32))
+    assert torch.equal(pipeline.resize_bilinear(x, 224),
+                       torch.einsum("bhwc,hH,wW->bHWc", x, fresh, fresh))
+
+
+@pytest.mark.parametrize("crop_scale", [None, (0.66, 1.0)])
+def test_packed_draws_augment_as_the_draws(crop_scale):
+    """The draws packed into the one tensor a card's copy sends, and
+    unpacked, augment to the bits of the draws themselves; JAX's int32
+    offsets too."""
+    u8 = torch.from_numpy(RNG.integers(0, 256, (8, 64, 64, 3),
+                                       dtype=np.uint8))
+    draws = pipeline.crop_draws(pipeline.step_generator(7, 3), 8, 64, 64, 48,
+                                crop_scale)
+    assert draws["flips"].any() and not draws["flips"].all()
+    jdraws = jax_crop_draws(jax.random.PRNGKey(2), 8, 64, 64, 48)
+    for d, scale in ((draws, crop_scale), (jdraws, None)):
+        packed = pipeline._pack_draws(d)
+        assert packed.shape == (3, 8) and packed.dtype == torch.int64
+        got = pipeline.augment(u8, pipeline._unpack_draws(d["size"], packed),
+                               48, scale)
+        assert torch.equal(got, pipeline.augment(u8, d, 48, scale))
+    assert pipeline._draws_on(draws, torch.device("cpu")) is draws
+
+
+def test_host_feed_on_the_cpu_moves_arrays_as_they_are():
+    """Off a card the feed is `torch.as_tensor(arr).to(device)`: the same
+    dtype and values, no staging buffer kept."""
+    feed = loop.HostFeed(torch.device("cpu"))
+    latlng = RNG.normal(size=(6, 2))
+    arrays = [RNG.integers(0, 256, (6, 16, 16, 3), dtype=np.uint8),
+              RNG.integers(-1, 9, (3, 6)).astype(np.int32),
+              latlng[:, 0], ~np.isnan(latlng[:, 1])]
+    for arr in arrays:
+        got = feed(arr)
+        want = torch.as_tensor(arr)
+        assert got.device.type == "cpu" and got.dtype == want.dtype
+        assert torch.equal(got, want)
+    assert feed._slots == {}
+
+
 # -- losses, schedules, optimizers ---------------------------------------------------
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
@@ -369,6 +434,66 @@ def test_optimizer_matches_optax(name, kw):
                                        np.asarray(params[k]), rtol=0,
                                        atol=1e-6)
     assert port.count == 3
+
+
+def _sgd_per_leaf(opt, lr):
+    """SGD leaf by leaf, six elementwise operations each: the arrangement
+    the update over all leaves at once has to round as."""
+    for p, t in zip(opt.params, opt.slots["trace"]):
+        u = p.grad
+        if opt.weight_decay:
+            u = u + opt.weight_decay * p
+        t.mul_(opt.momentum).add_(u)
+        p.sub_(lr * (u + opt.momentum * t if opt.nesterov else t))
+
+
+@pytest.mark.parametrize("nesterov", [False, True],
+                         ids=["momentum", "nesterov"])
+@pytest.mark.parametrize("wd", [0.0, 1e-4], ids=["no_decay", "decay"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+def test_sgd_over_all_leaves_keeps_the_per_leaf_bits(dtype, wd, nesterov):
+    """Three updates at learning rates that are no powers of two: every
+    leaf and its trace bit for bit the per-leaf formula's."""
+    gen = torch.Generator().manual_seed(5)
+    shapes = [(3, 4), (5,), (2, 3, 3, 2), (1,), (7, 1)]
+    init = [torch.randn(s, generator=gen).to(dtype) for s in shapes]
+    schedule = lambda count: 0.3 * (count + 1) / 3   # noqa: E731
+    got, want = ([t.clone() for t in init] for _ in range(2))
+    kw = dict(momentum=0.9, nesterov=nesterov, weight_decay=wd)
+    opt = optim.Optimizer(got, schedule, **kw)
+    ref = optim.Optimizer(want, schedule, **kw)
+    for k in range(3):
+        for p, q in zip(got, want):
+            p.grad = torch.randn(p.shape, generator=gen).to(dtype)
+            q.grad = p.grad.clone()
+        opt.step()
+        _sgd_per_leaf(ref, schedule(k))
+    assert opt.count == 3
+    for a, b in zip(got + opt.slots["trace"], want + ref.slots["trace"]):
+        assert a.dtype == dtype and torch.equal(a, b)
+
+
+def test_running_stats_over_all_norms_keep_the_per_norm_bits():
+    """`update_running_stats` over every BatchNorm at once: each running
+    mean and variance bit for bit one BatchNorm's own momentum * running +
+    (1 - momentum) * batch."""
+    gen = torch.Generator().manual_seed(3)
+    bns = [torch.nn.BatchNorm2d(c) for c in (4, 16, 7)]
+    for bn in bns:
+        bn.running_mean.normal_(generator=gen)
+        bn.running_var.uniform_(0.5, 2.0, generator=gen)
+    stats = [t for bn in bns for t in (
+        torch.randn(bn.num_features, generator=gen),
+        torch.rand(bn.num_features, generator=gen))]
+    m = resnet.BN_MOMENTUM
+    want = [(m * bn.running_mean + (1 - m) * mean,
+             m * bn.running_var + (1 - m) * var)
+            for bn, mean, var in zip(bns, stats[0::2], stats[1::2])]
+    resnet.update_running_stats(bns, stats)
+    for bn, (mean, var) in zip(bns, want):
+        assert torch.equal(bn.running_mean, mean)
+        assert torch.equal(bn.running_var, var)
 
 
 # -- the steps ------------------------------------------------------------------------
