@@ -11,6 +11,8 @@
                                              # kernel build)
     python3 chip_smoke.py --phase 15         # phase 15 alone (after the
                                              # kernel build)
+    python3 chip_smoke.py --phase 16         # phase 16 alone (after the
+                                             # kernel build)
 
 Phases, in order; any failure exits non-zero and prints no result line:
   1. device: the card's name and power limit (nvidia-smi), torch and CUDA
@@ -25,8 +27,9 @@ Phases, in order; any failure exits non-zero and prints no result line:
      `InferenceEngine.predict_batch` with the BN-folded fast path and the
      hand-written kernels, first in the default configuration (the
      stride-1 kernel only), then with `use_pallas_s2` (the stride-2 kernel
-     too); launch counts of each run, agreement with the unfolded module
-     path, and images/s;
+     too); launch counts of each run (the fused kernels' and the
+     convolution epilogue's, 31 a forward), agreement with the unfolded
+     module path, and images/s;
   4. host-exact ten-crop: `predict_batch` of a `tta_mode="host_exact"`
      engine on the fast path with the stride-1 kernel, fed
      `decode_batch_tencrop` of 8 seeded non-square JPEGs (seeded uint8 crops
@@ -217,7 +220,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
      steps under `torch.cuda.set_sync_debug_mode("error")` (nothing in a
      step waits for the card), 212 `bn_train` launches a step, and the ms
      of 10 steps beside the host's ms to queue each;
- 16. one JSON line describing every kernel (with its launches per forward
+ 16. the fast path's convolution epilogue (`ops.conv_epilogue`): at each
+     of its shapes in a ResNet101 forward of 80 and of 640 crops, each form
+     on seeded maps with NaN and negative zero planted, bit for bit its
+     plain version; its device ms summed over the forward's 82 launches (at
+     80 and at 640 crops) beside its bytes bound at the published HBM peak
+     (and at the card's measured copy rate) and its plain version's ms;
+     the ResNet101 and ResNet50 fast networks and their W-mirrors on 80
+     crops, logits bit for bit those with the plain epilogue; its launches
+     on each path (82 a ResNet101 forward, 31 a ResNet50 one, none in an
+     int8 forward or a train step);
+ 17. one JSON line describing every kernel (with its launches per forward
      on each path), then the result line {"ok": true, "device": {...}}.
 
 Imports torch, numpy and the standard library only, besides the port
@@ -242,6 +255,7 @@ import tempfile
 import threading
 import time
 import types
+import unittest.mock
 import urllib.request
 
 import numpy as np
@@ -259,12 +273,14 @@ from geoestimation_tpu_torch.ingest.pipeline import (
     shift_s8,
 )
 from geoestimation_tpu_torch.models import quant, resnet
+from geoestimation_tpu_torch.models import fast_infer
 from geoestimation_tpu_torch.models.fast_infer import (
     build_fast_apply,
     build_mirror_tta_apply,
 )
 from geoestimation_tpu_torch.ops import _build
 from geoestimation_tpu_torch.ops import bn_train as ops_bn
+from geoestimation_tpu_torch.ops import conv_epilogue as ops_epi
 from geoestimation_tpu_torch.ops import conv_s8 as ops8
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
 from geoestimation_tpu_torch.serve import GeoInferenceServer
@@ -529,8 +545,10 @@ def phase_kernels(label, ptxas):
 # -- phase 3 -------------------------------------------------------------------
 
 FAST_RTOL, FAST_ATOL = 0.15, 0.2          # as tests/test_fast_infer.py:110
-# launches per forward of each configuration: (fused_bottleneck, _s2)
-WANT_DEFAULT, WANT_S2 = (6, 0), (6, 1)
+# launches per forward of each configuration at 224 px: (fused_bottleneck,
+# _s2, conv_epilogue); the epilogue ends each convolution outside the
+# fused kernels, the stem's and three of each other block's
+WANT_DEFAULT, WANT_S2 = (6, 0, 31), (6, 1, 28)
 
 
 def _check_predictions(engine, preds, n):
@@ -546,12 +564,13 @@ def _check_predictions(engine, preds, n):
 
 
 def _counted(fn):
-    """(fn(), (fused_bottleneck, fused_bottleneck_s2) launches during it),
-    with both counts set to 0 just before."""
+    """(fn(), (fused_bottleneck, fused_bottleneck_s2, conv_epilogue)
+    launches during it), with the counts set to 0 just before."""
     ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
+    ops_epi.launches = 0
     out = fn()
     return out, (ops.fused_bottleneck.launches,
-                 ops.fused_bottleneck_s2.launches)
+                 ops.fused_bottleneck_s2.launches, ops_epi.launches)
 
 
 def _images_per_s(engine, images, reps=5):
@@ -597,7 +616,8 @@ def _drive(name, engine, images, want):
     preds, launches = _counted(lambda: engine.predict_batch(images))
     log(f"main path: {name} predict_batch({len(images)} images x 10 crops): "
         f"launches fused_bottleneck {launches[0]}, fused_bottleneck_s2 "
-        f"{launches[1]} (want {want[0]}, {want[1]} per forward)")
+        f"{launches[1]}, conv_epilogue {launches[2]} (want {want} per "
+        f"forward)")
     if launches != want:
         raise RuntimeError(f"{name}: launches {launches} in one forward, "
                            f"want {want}")
@@ -617,7 +637,8 @@ def phase_main_path(label, engine):
     images = rng.integers(0, 256, (8, 256, 256, 3), dtype=np.uint8)
 
     # the default configuration: the stride-1 kernel only
-    preds, (default_launches, _) = _drive("fast", fast, images, WANT_DEFAULT)
+    preds, (default_launches, _, default_epi) = _drive("fast", fast, images,
+                                                       WANT_DEFAULT)
     module = engine(fast=False)
     x = torch.as_tensor(images, device="cuda")
     _hold_to_module("fast", fast, module, x)
@@ -638,7 +659,8 @@ def phase_main_path(label, engine):
 
     # the use_pallas_s2 configuration: layer2.0 through the stride-2 kernel
     fast_s2 = engine(fast=True, use_pallas=True, use_pallas_s2=True)
-    preds_s2, (_, s2_launches) = _drive("fast_s2", fast_s2, images, WANT_S2)
+    preds_s2, (_, s2_launches, s2_epi) = _drive("fast_s2", fast_s2, images,
+                                                WANT_S2)
     _hold_to_module("fast_s2", fast_s2, module, x)
     same = {k: float(np.mean(preds_s2[k][0] == ref_preds[k][0]))
             for k in preds_s2}
@@ -666,7 +688,9 @@ def phase_main_path(label, engine):
         raise RuntimeError(f"launches per forward {per_fwd} and "
                            f"{per_fwd_s2}, want {WANT_DEFAULT} and {WANT_S2}")
     return {"fused_bottleneck": default_launches,
-            "fused_bottleneck_s2": s2_launches}, fast, module, fast_ips
+            "fused_bottleneck_s2": s2_launches,
+            "conv_epilogue": default_epi,
+            "conv_epilogue_s2": s2_epi}, fast, module, fast_ips
 
 
 # -- phase 4 -------------------------------------------------------------------
@@ -713,7 +737,7 @@ def phase_host_exact(engine, module):
     ref = module.predict_batch(crops)
     same = {k: float(np.mean(preds[k][0] == ref[k][0])) for k in preds}
     log(f"host exact: predicted-class agreement fast vs module {same}")
-    return crops
+    return crops, launches
 
 
 # -- phase 5 -------------------------------------------------------------------
@@ -798,6 +822,7 @@ def phase_server(label, fast):
             f"native ingest library {native}")
         fast.predict_batch(images[:SERVER_BATCH])   # the --warmup batch
         ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
+        ops_epi.launches = 0
         if image_mod is not None:
             with multiprocessing.get_context("spawn").Pool(1) as pool:
                 answers, latency, wall = pool.apply(
@@ -807,15 +832,15 @@ def phase_server(label, fast):
                 lambda i: srv.batcher.submit(images[i]), N_REQUESTS,
                 N_CLIENTS)
         launches = (ops.fused_bottleneck.launches,
-                    ops.fused_bottleneck_s2.launches)
+                    ops.fused_bottleneck_s2.launches, ops_epi.launches)
         stats = srv.batcher.stats()
         if None in answers or stats["requests"] != N_REQUESTS:
             raise RuntimeError(f"server answered {stats['requests']} of "
                                f"{N_REQUESTS} requests")
-        want = (WANT_DEFAULT[0] * stats["batches"], 0)
+        want = tuple(n * stats["batches"] for n in WANT_DEFAULT)
         log(f"server: {stats['batches']} micro-batches, launches "
             f"fused_bottleneck {launches[0]}, fused_bottleneck_s2 "
-            f"{launches[1]} (want {want})")
+            f"{launches[1]}, conv_epilogue {launches[2]} (want {want})")
         if launches != want:
             raise RuntimeError(f"server: launches {launches}, want {want}")
 
@@ -847,7 +872,8 @@ def phase_server(label, fast):
             "batches": stats["batches"],
             "predict_batch_share": stats["predict_s"] / wall, "how": how,
             "decode_backend": decode.auto_backend(),
-            "launches_fused_bottleneck": launches[0], "card": label}
+            "launches_fused_bottleneck": launches[0],
+            "launches_conv_epilogue": launches[2], "card": label}
 
 
 # -- phase 6 -------------------------------------------------------------------
@@ -984,7 +1010,7 @@ TTA_SHAPES = {
          256, 128, 512, True, 0),
     ],
 }
-WANT_MIRROR = (12, 0)     # net and netM, each the default path's 6
+WANT_MIRROR = (12, 0, 62)     # net and netM, each the default path's
 FTTA_LEVELS = ((3, 8), (1, 4), (2, 4))    # (level, images): level 3 first
 
 
@@ -1076,7 +1102,8 @@ def phase_tta(label, engine, fast, sd, ptxas, fast_ips):
     got, launches["mirror"] = _counted(lambda: mirror(x))
     log(f"tta: mirror TTA (8 images x 5 crops x {{net, netM}}): launches "
         f"fused_bottleneck {launches['mirror'][0]}, fused_bottleneck_s2 "
-        f"{launches['mirror'][1]} (want {WANT_MIRROR})")
+        f"{launches['mirror'][1]}, conv_epilogue {launches['mirror'][2]} "
+        f"(want {WANT_MIRROR})")
     if launches["mirror"] != WANT_MIRROR:
         raise RuntimeError(f"mirror TTA: launches {launches['mirror']}, want "
                            f"{WANT_MIRROR}")
@@ -1160,7 +1187,8 @@ def phase_isn(label):
     if min(routes) == 0:
         raise RuntimeError(f"isn: a scene is never routed to: {routes}")
     rows = _decisive(scene_bf16)
-    preds, (n_fast, _) = _drive("isn fast", fast, images, WANT_DEFAULT)
+    preds, (n_fast, _, n_epi) = _drive("isn fast", fast, images,
+                                       WANT_DEFAULT)
     _same_answers("isn fast", fast, preds, fast.crop_logits(x))
     _hold_logits("isn: fast vs module path on decisive crops",
                  fast.pred_keys, fast.crop_logits(x), module.crop_logits(x),
@@ -1181,7 +1209,8 @@ def phase_isn(label):
         "decisive_crops": {"bf16": int(rows.sum()),
                            "fp32": int(_decisive(scene_fp32).sum())},
         "card": label}))
-    return {"fused_bottleneck": n_fast, "conv_s8": n_int8}
+    return {"fused_bottleneck": n_fast, "conv_s8": n_int8,
+            "conv_epilogue": n_epi}
 
 
 # -- phase 9 -------------------------------------------------------------------
@@ -1217,8 +1246,16 @@ class _Stamped(io.TextIOBase):
 
 
 def _all_launches():
+    """(fused_bottleneck, fused_bottleneck_s2, conv_s8, conv_epilogue)
+    launches so far."""
     return (ops.fused_bottleneck.launches, ops.fused_bottleneck_s2.launches,
-            ops8.conv_s8.launches)
+            ops8.conv_s8.launches, ops_epi.launches)
+
+
+def _as_all(want):
+    """A `_counted` count (fused_bottleneck, _s2, conv_epilogue) as
+    `_all_launches` orders it, with no conv_s8 launch."""
+    return want[0], want[1], 0, want[2]
 
 
 def _fit(label, path):
@@ -1227,7 +1264,7 @@ def _fit(label, path):
     batches is reported against the wall from the start of main to the
     last step."""
     ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
-    ops8.conv_s8.launches = ops_bn.bn_train.launches = 0
+    ops8.conv_s8.launches = ops_bn.bn_train.launches = ops_epi.launches = 0
     torch.cuda.reset_peak_memory_stats()
     out = _Stamped(sys.stdout)
     t0 = time.perf_counter()
@@ -1265,7 +1302,7 @@ def _fit(label, path):
         "bn_train_launches_per_step": bn_launches / TRAIN_STEPS,
         "wall_s": wall, "card": label}
     log("train fit " + json.dumps(line))
-    if launches != (0, 0, 0):
+    if launches != (0, 0, 0, 0):
         raise RuntimeError(f"train: the train steps launched kernels "
                            f"{launches}")
     if bn_launches != TRAIN_STEPS * BN_LAUNCHES:
@@ -1423,8 +1460,8 @@ def _serve_trained(ckpt, val_pattern):
         return InferenceEngine(config, sd, n_crops=10, device="cuda", **kw)
 
     fast, module = engine(fast=True, use_pallas=True), engine()
-    preds, (launches, _) = _drive("train: trained checkpoint", fast, images,
-                                  WANT_DEFAULT)
+    preds, (launches, _, _) = _drive("train: trained checkpoint", fast,
+                                     images, WANT_DEFAULT)
     x = torch.as_tensor(images, device="cuda")
     _hold_logits("train: trained checkpoint fast vs module logits",
                  fast.pred_keys, fast.crop_logits(x), module.crop_logits(x),
@@ -1834,16 +1871,17 @@ def _table_gate(name, merged, single, pair_reports, single_report, truth):
 
 
 def _launch_gate(name, reports, kernel, want):
-    """Every forward of every rank launched `kernel` `want` times and the
-    other kernels not at all; returns the launches per forward per rank."""
-    k = {"fused_bottleneck": 0, "fused_bottleneck_s2": 1, "conv_s8": 2}[
-        kernel]
+    """Every forward of every rank launched the kernels as `want` (an
+    `_all_launches` count) says; returns `kernel`'s launches per forward
+    per rank."""
+    k = {"fused_bottleneck": 0, "fused_bottleneck_s2": 1, "conv_s8": 2,
+         "conv_epilogue": 3}[kernel]
     per_rank = []
     for p, r in enumerate(reports):
         fwd = r["forwards"]
-        if not fwd or any(f[k] != want or sum(f) != want for f in fwd):
+        if not fwd or any(tuple(f) != want for f in fwd):
             raise RuntimeError(f"multi-process {name}: rank {p} launches per "
-                               f"forward {fwd}, want {want} of {kernel}")
+                               f"forward {fwd}, want {want}")
         per_rank.append(fwd[0][k])
     return per_rank
 
@@ -1894,7 +1932,7 @@ def _mp_eval(label, ranks, tmp, config, sd, parts):
         raise RuntimeError("multi-process inference: the part files' rows "
                            "or classes differ from one process's")
     launches = _launch_gate("inference", inf, "fused_bottleneck",
-                            WANT_DEFAULT[0])
+                            _as_all(WANT_DEFAULT))
     # int8: both ranks defaulted --calib_dir and derived the same scales
     ident = [r["int8"] for r in i8]
     if not (ident[0] == ident[1] and ident[0]["calib_dir"] == images
@@ -1907,7 +1945,7 @@ def _mp_eval(label, ranks, tmp, config, sd, parts):
     with open(out["int8_1"]) as f:
         single8 = json.load(f)
     table8 = _table_gate("int8 test", merged8, single8, i8, i81[0], truth)
-    launches8 = _launch_gate("int8", i8, "conv_s8", INT8_LAUNCHES)
+    launches8 = _launch_gate("int8", i8, "conv_s8", (0, 0, INT8_LAUNCHES, 0))
     _mp_print("eval", {
         "what": "classification.test --fast (bf16, cuDNN route) in two "
                 f"processes on {min(2, torch.cuda.device_count())} card(s) "
@@ -2359,7 +2397,7 @@ def _step_figures(name, steps, batch):
     """ms a step past the first and images/s; fails unless every step
     launched no kernel."""
     launches = {l for _, l in steps}
-    if launches != {(0, 0, 0)}:
+    if launches != {(0, 0, 0, 0)}:
         raise RuntimeError(f"{name}: a train step launched kernels "
                            f"{sorted(launches)}")
     ms = 1e3 * float(np.mean([t for t, _ in steps[1:]]))
@@ -2552,10 +2590,11 @@ def _distill(label, tmp, mp_ckpt):
 
     bf16 = engine(use_pallas=True)
     n_classes = tuple(len(p) for p in bf16.partitionings)
-    preds, (n_fb, n_s2) = _counted(lambda: bf16.predict_batch(images))
-    if (n_fb, n_s2) != WANT_DEFAULT:
-        raise RuntimeError(f"distill: feature TTA launched {(n_fb, n_s2)}, "
-                           f"want {WANT_DEFAULT}")
+    preds, counts = _counted(lambda: bf16.predict_batch(images))
+    n_fb = counts[0]
+    if counts != WANT_DEFAULT:
+        raise RuntimeError(f"distill: feature TTA launched {counts}, want "
+                           f"{WANT_DEFAULT}")
     with torch.no_grad():
         student = td.build_ftta_apply(arch, n_classes, level=3)(
             qat.fold_variables(sd, arch, device="cuda"), x.float() - 128.0)
@@ -2759,7 +2798,7 @@ def _cells_at_mp16_scale(label, tmp):
 
 def _forward_launches(fn):
     """fn() with each InferenceEngine forward's kernel launches recorded;
-    (fn(), [(fused_bottleneck, _s2, conv_s8) per forward])."""
+    (fn(), [`_all_launches` count per forward])."""
     per = []
     orig = InferenceEngine._forward
 
@@ -2818,8 +2857,7 @@ def phase_prep(label, tmp):
         raise RuntimeError("prep: the partitioning CLIs' CSVs differ from "
                            "create_cells / assign_classes, or an eval image "
                            "lies outside its own cells")
-    ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
-    ops8.conv_s8.launches = 0
+    _zero_launches()
     with contextlib.redirect_stdout(_Stamped(sys.stdout)) as out:
         trainer = train_base.main(["--config",
                                    os.path.join(root, "demo.yml"),
@@ -2830,7 +2868,7 @@ def phase_prep(label, tmp):
               for _, line in out.lines if line.startswith("step ")}
     losses = list(logged.values())
     ckpt = trainer.tp.checkpoint_dir
-    if _all_launches() != (0, 0, 0) or DEMO_STEPS not in logged or \
+    if _all_launches() != (0, 0, 0, 0) or DEMO_STEPS not in logged or \
             not np.all(np.isfinite(losses)):
         raise RuntimeError(f"prep: train_base losses {losses}, launches "
                            f"{_all_launches()}")
@@ -2841,7 +2879,7 @@ def phase_prep(label, tmp):
                                                           "eval_images"),
         "--output", csv, "--fast", "--pallas"]))
     preds = pd.read_csv(csv)
-    if not per or set(per) != {(*WANT_DEFAULT, 0)} or \
+    if not per or set(per) != {_as_all(WANT_DEFAULT)} or \
             preds.iloc[:, 0].nunique() != DEMO_EVAL or \
             not np.isfinite(preds.select_dtypes("number").to_numpy()).all():
         raise RuntimeError(f"prep: inference --fast --pallas launched {per} "
@@ -2871,7 +2909,7 @@ ROOFLINE_BATCH, ROOFLINE_ITERS = 256, 10
 
 def _zero_launches():
     ops.fused_bottleneck.launches = ops.fused_bottleneck_s2.launches = 0
-    ops8.conv_s8.launches = 0
+    ops8.conv_s8.launches = ops_epi.launches = 0
 
 
 def _tool_line(tool, line):
@@ -2904,7 +2942,7 @@ def _e2e_eval(label, precision, corpus):
         result = bench_e2e_eval.main(["--image_dir", corpus,
                                       "--n_images", str(E2E_IMAGES),
                                       "--precision", precision])
-    want = (0, 0, INT8_LAUNCHES if precision == "int8" else 0)
+    want = (0, 0, INT8_LAUNCHES if precision == "int8" else 0, 0)
     finite = all(bool(torch.isfinite(lat).all() and torch.isfinite(lng).all())
                  and cls.shape == (result["batch_size"],)
                  for cls, lat, lng in answers)
@@ -2958,7 +2996,7 @@ def _stem(label):
     bad = {f"{route} {name}": sorted(seen) for (route, name), seen
            in calls.items()
            if seen != {(0, 0, int(route == "conv_s8"
-                                  and name in bench_stem.KERNEL_FORMS))}}
+                                  and name in bench_stem.KERNEL_FORMS), 0)}}
     timed = [l for l in lines if np.isfinite(l["library_ms"])
              and (l["conv_s8_ms"] is None or np.isfinite(l["conv_s8_ms"]))
              and l["bit_identical_at_crops"] == [4, STEM_CROPS]]
@@ -2997,7 +3035,7 @@ def phase_tools(label):
     _zero_launches()
     roof = train_roofline.main(["--batch", str(ROOFLINE_BATCH), "--iters",
                                 str(ROOFLINE_ITERS)])
-    if _all_launches() != (0, 0, 0) or not roof["flops"] > 0 or \
+    if _all_launches() != (0, 0, 0, 0) or not roof["flops"] > 0 or \
             not roof["bytes_accessed"] > 0 or \
             not np.isfinite(roof["measured_ms"]):
         raise RuntimeError(f"tools: train_roofline {roof}, launches "
@@ -3401,6 +3439,260 @@ def phase_host_path(label):
     return line
 
 
+# -- phase 16 ------------------------------------------------------------------
+
+EPI_N = 80
+EPI_CELL_N = 640          # the crops of a benchmark call: 64 photos x 10
+EPI_FORMS = ("bias_relu", "bias_add_relu", "bias_add_relu_ds")
+# launches a forward with use_pallas at 224 px: the stem, then three a block
+# of every block the fused kernel does not take
+EPI_LAUNCHES = {"resnet101": 82, "resnet50": 31}
+
+
+def epilogue_shapes(arch="resnet101", n=EPI_N, crop=224):
+    """{((N, C, H, W), form): launches} of the fast path's convolution
+    epilogues in one forward of `n` crops with `use_pallas`: the stem, and
+    conv1, conv2 and conv3 of each block outside the fused kernel (layer1's
+    and layer2's stride-1 blocks), in the forward's order."""
+    out = {}
+
+    def add(c, h, form):
+        out[(n, c, h, h), form] = out.get(((n, c, h, h), form), 0) + 1
+
+    h = crop // 2
+    add(64, h, "bias_relu")
+    h //= 2                                   # the max pool
+    for stage, blocks in enumerate(resnet.STAGE_SIZES[arch]):
+        cmid = 64 * 2 ** stage
+        for b in range(blocks):
+            stride = 2 if stage > 0 and b == 0 else 1
+            if stride == 1 and stage in fast_infer.PALLAS_STAGES:
+                continue
+            add(cmid, h, "bias_relu")
+            h //= stride
+            add(cmid, h, "bias_relu")
+            add(4 * cmid, h, "bias_add_relu_ds" if b == 0 else
+                "bias_add_relu")
+    return out
+
+
+def epilogue_inputs(shape, form, seed, plant=True):
+    """(y, b, res, bres) of one epilogue on the card: seeded channels-last
+    bf16 maps and (C, 1, 1) bf16 biases, res None for bias_relu and bres
+    for all but bias_add_relu_ds. With `plant`, NaN in every 997th element
+    of y and res, and negative zero in channel 0 of every 7th row of y and
+    res and in channel 0 of b and bres (so that sums of negative zeros
+    reach relu)."""
+    n, c, h, w = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def nchw():
+        return torch.randn((n, h, w, c), generator=gen, device="cuda").to(
+            torch.bfloat16).permute(0, 3, 1, 2)
+
+    def vec():
+        return (torch.randn(c, generator=gen, device="cuda") * 0.5).to(
+            torch.bfloat16)[:, None, None]
+
+    y, b = nchw(), vec()
+    res = None if form == "bias_relu" else nchw()
+    bres = vec() if form == "bias_add_relu_ds" else None
+    if plant:
+        for t in (y, res):
+            if t is not None:
+                rows = t.permute(0, 2, 3, 1).view(-1, c)
+                rows.view(-1)[::997] = float("nan")
+                rows[::7, 0] = -0.0
+        for t in (b, bres):
+            if t is not None:
+                t[0] = -0.0
+    return y, b, res, bres
+
+
+def epilogue_op(form, y, b, res, bres, plain=False):
+    """`form`'s entry point of `ops.conv_epilogue` on y in place, or its
+    plain version."""
+    if form == "bias_relu":
+        fn = ops_epi.bias_relu_reference if plain else ops_epi.bias_relu_
+        return fn(y, b)
+    fn = ops_epi.bias_add_relu_reference if plain else ops_epi.bias_add_relu_
+    return fn(y, b, res, bres)
+
+
+def _bits(t):
+    return t.view(torch.int16)
+
+
+def check_epilogue(shape, form, seed=0):
+    """The kernel on `epilogue_inputs` against its plain version: one
+    launch, in place, every output bit equal (int16 views, so that NaN and
+    negative zero count). Returns the NaNs and negative zeros of the
+    output."""
+    y, b, res, bres = epilogue_inputs(shape, form, seed)
+    plain = epilogue_op(form, y.clone(), b, res, bres, plain=True)
+    before = ops_epi.launches
+    got = epilogue_op(form, y, b, res, bres)
+    torch.cuda.synchronize()
+    same = torch.equal(_bits(got), _bits(plain))
+    if ops_epi.launches != before + 1 or got.data_ptr() != y.data_ptr() \
+            or not same:
+        raise RuntimeError(
+            f"conv_epilogue {form} at {shape}: launches "
+            f"{ops_epi.launches - before}, in place "
+            f"{got.data_ptr() == y.data_ptr()}, bits equal to the plain "
+            f"version {same}")
+    return {"nan": int(torch.isnan(got).sum()),
+            "negative_zero": int(((got == 0) & torch.signbit(got)).sum())}
+
+
+def epilogue_bytes(shape, form):
+    """Bytes the kernel must move at one shape: y read and written, the
+    residual read, the biases read."""
+    n, c, h, w = shape
+    maps = 2 if form == "bias_relu" else 3
+    return 2 * (maps * n * c * h * w + c * (1 + (form == "bias_add_relu_ds")))
+
+
+def card_bandwidth():
+    """Bytes a second of a 1 GiB device-to-device copy (read and written):
+    a second bytes bound is taken at this rate, beside the published
+    peak's."""
+    src = torch.zeros(2 ** 29, dtype=torch.bfloat16, device="cuda")
+    dst = torch.empty_like(src)
+    ms = _queued_ms(lambda: dst.copy_(src), reps=10)
+    del src, dst
+    return 2 * 2 ** 30 / (ms * 1e-3)
+
+
+def time_epilogue(shapes, bandwidth):
+    """{kernel, plain, bound, bound_copy}: device ms summed over a forward's
+    launches at `shapes`; the kernel and its plain version, each on fresh
+    unplanted inputs in place, 20 calls queued; the bytes bound at the
+    published peak and at the measured copy rate `bandwidth`."""
+    total = {"kernel": 0.0, "plain": 0.0, "bound": 0.0, "bound_copy": 0.0}
+    for (shape, form), count in shapes.items():
+        for name, plain in (("kernel", False), ("plain", True)):
+            y, b, res, bres = epilogue_inputs(shape, form, 1, plant=False)
+            total[name] += count * _queued_ms(
+                lambda: epilogue_op(form, y, b, res, bres, plain=plain))
+            del y, b, res, bres
+        nbytes = epilogue_bytes(shape, form)
+        total["bound"] += count * bound_ms(0, nbytes)[0]
+        total["bound_copy"] += count * 1e3 * nbytes / bandwidth
+    return total
+
+
+def _epilogue_network_bits(sd, arch, mirror, n=EPI_N):
+    """(launches a forward, bit-equal) of the `arch` fast network with
+    `use_pallas` (its W-mirror with `mirror`) on n seeded normalized crops:
+    its logits against the same network's with the plain epilogue."""
+    apply = build_fast_apply(sd, arch, use_pallas=True, mirror=mirror)
+    x = torch.randn((n, 224, 224, 3), generator=torch.Generator(
+        device="cuda").manual_seed(16), device="cuda")
+    with torch.inference_mode():
+        before = ops_epi.launches
+        got = apply(x)
+        torch.cuda.synchronize()
+        launches = ops_epi.launches - before
+        with unittest.mock.patch.multiple(
+                fast_infer, bias_relu_=ops_epi.bias_relu_reference,
+                bias_add_relu_=ops_epi.bias_add_relu_reference):
+            plain = apply(x)
+    torch.cuda.synchronize()
+    return launches, torch.equal(_bits(got), _bits(plain))
+
+
+def _epilogue_other_paths():
+    """conv_epilogue launches across an int8 ResNet50 forward of 80 crops
+    and across a ResNet50 train step at batch 32."""
+    config, sd, parts = world.build_world(counts=(40, 120, 360))
+    images = np.random.default_rng(16).integers(0, 256, (8, 256, 256, 3),
+                                                dtype=np.uint8)
+    eng = InferenceEngine(config, sd, partitionings=parts, n_crops=10,
+                          device="cuda", int8=True)
+    eng.predict_batch(images)       # calibrates on its first batch
+    torch.cuda.synchronize()
+    before = ops_epi.launches
+    eng.predict_batch(images)
+    torch.cuda.synchronize()
+    out = {"int8_forward": ops_epi.launches - before}
+    del eng
+    _, _, _, step = bench_train.setup(32, n_classes=(40, 120, 360))
+    step()
+    torch.cuda.synchronize()
+    before = ops_epi.launches
+    step()
+    torch.cuda.synchronize()
+    out["train_step"] = ops_epi.launches - before
+    return out
+
+
+def phase_conv_epilogue(label):
+    """The fast path's convolution epilogue (module docs, 16); returns its
+    JSON entry."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    shapes = epilogue_shapes()
+    planted = {}
+    for (shape, form), count in shapes.items():
+        planted[form] = check_epilogue(shape, form)
+        log("kernel-check " + json.dumps({
+            "kernel": "conv_epilogue", "shape": list(shape), "form": form,
+            "launches_a_forward": count, "bits_equal": True,
+            "output": planted[form], "card": label}))
+    for shape, form in epilogue_shapes(n=EPI_CELL_N):    # the cell's batch
+        check_epilogue(shape, form, seed=1)
+    for form in EPI_FORMS:      # an odd batch, a ragged last stretch of rows
+        check_epilogue((3, 256, 13, 11), form, seed=2)
+    bandwidth = card_bandwidth()
+    ms = time_epilogue(shapes, bandwidth)
+    ms_cell = time_epilogue(epilogue_shapes(n=EPI_CELL_N), bandwidth)
+    torch.cuda.empty_cache()
+    by_path, bits = {}, {}
+    for arch in ("resnet101", "resnet50"):
+        _, sd, _ = world.build_world(arch=arch, counts=(40, 120, 360))
+        for mirror in (False, True):
+            name = f"{arch}_fast{'_mirror' if mirror else ''}_forward"
+            by_path[name], bits[name] = _epilogue_network_bits(sd, arch,
+                                                               mirror)
+        del sd
+    by_path.update(_epilogue_other_paths())
+    want = {"resnet101_fast_forward": EPI_LAUNCHES["resnet101"],
+            "resnet101_fast_mirror_forward": EPI_LAUNCHES["resnet101"],
+            "resnet50_fast_forward": EPI_LAUNCHES["resnet50"],
+            "resnet50_fast_mirror_forward": EPI_LAUNCHES["resnet50"],
+            "int8_forward": 0, "train_step": 0}
+    if sum(shapes.values()) != EPI_LAUNCHES["resnet101"] or \
+            by_path != want or not all(bits.values()):
+        raise RuntimeError(f"conv_epilogue: launches by path {by_path} "
+                           f"(want {want}), network logits bit for bit the "
+                           f"plain epilogue's {bits}")
+    entry = {
+        "name": "conv_epilogue",
+        "route": "cuda",
+        "source": "geoestimation_tpu_torch/csrc/conv_epilogue.cu",
+        "replaces": None,
+        "launches": by_path["resnet101_fast_forward"],
+        "launches_by_path": by_path,
+        "network_bits_equal": bits,
+        "output_planted": planted,
+        "ms": ms["kernel"],
+        "plain_ms": ms["plain"],
+        "bound_ms": ms["bound"],
+        "bound_ms_copy": ms["bound_copy"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "bandwidth_gbps": bandwidth * 1e-9,
+        "n640": ms_cell,
+        "what": f"a ResNet101 fast forward of {EPI_N} crops at 224 px: the "
+                f"{EPI_LAUNCHES['resnet101']} convolution epilogues, summed",
+    }
+    log("conv_epilogue " + json.dumps({**entry, "shapes": len(shapes),
+                                       "seconds": time.perf_counter() - t0,
+                                       "card": label}))
+    return entry
+
+
 def main():
     t0 = time.perf_counter()
     label, ptxas = phase_device()
@@ -3412,7 +3704,7 @@ def main():
                                dtype=dtype, device=device, **kw)
 
     launches, fast, module, fast_ips = phase_main_path(label, engine)
-    host_crops = phase_host_exact(engine, module)
+    host_crops, host_exact = phase_host_exact(engine, module)
     server_line = phase_server(label, fast)
     del module
     launches["conv_s8"] = phase_int8(label, engine, fast_ips, host_crops)
@@ -3429,6 +3721,7 @@ def main():
     e2e, stem = phase_tools(label)
     kernels.append(phase_bn_train(label))
     phase_host_path(label)
+    kernels.append(phase_conv_epilogue(label))
     by_path = {
         "fused_bottleneck": {
             "device_tta": launches["fused_bottleneck"],
@@ -3477,6 +3770,15 @@ def main():
         "bn_train": {"train_steps": bn_per_step,
                      "bench_train_step": BN_LAUNCHES,
                      "bench_train_remat_step": BN_LAUNCHES_REMAT},
+        "conv_epilogue": {
+            "device_tta": launches["conv_epilogue"],
+            "device_tta_use_pallas_s2": launches["conv_epilogue_s2"],
+            "host_exact": host_exact[2],
+            "server_per_batch": server_line["launches_conv_epilogue"]
+            / server_line["batches"],
+            **{f"feature_tta_l{lv}": tta[lv][2] for lv, _ in FTTA_LEVELS},
+            "mirror_tta": tta["mirror"][2], "isn": isn["conv_epilogue"],
+            **kernels[-1]["launches_by_path"]},
     }
     launches["bn_train"] = bn_per_step
     for entry in kernels:
@@ -3591,6 +3893,18 @@ def phase_14_alone():
         "wall_s": time.perf_counter() - t0, "card": label}}), flush=True)
 
 
+def phase_16_alone():
+    """`python3 chip_smoke.py --phase 16`: phase 1's build, then phase 16;
+    one line of its wall after phase 16's own lines."""
+    label, _ = phase_device()
+    t0 = time.perf_counter()
+    entry = phase_conv_epilogue(label)
+    print(json.dumps({"phase_16": {
+        "ok": True, "ms": entry["ms"], "bound_ms": entry["bound_ms"],
+        "plain_ms": entry["plain_ms"], "wall_s": time.perf_counter() - t0,
+        "card": label}}), flush=True)
+
+
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank"]:
         fault, rest = None, sys.argv[3:]
@@ -3607,5 +3921,7 @@ if __name__ == "__main__":
         phase_14_alone()
     elif sys.argv[1:] == ["--phase", "15"]:
         phase_15_alone()
+    elif sys.argv[1:] == ["--phase", "16"]:
+        phase_16_alone()
     else:
         main()

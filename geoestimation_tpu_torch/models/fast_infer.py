@@ -18,8 +18,11 @@ where:
 
 Rounding follows the JAX fast path: outside the kernel every conv output is
 bf16 and its bias is added in bf16; inside it, the kernel's own rounding
-points. An ISN checkpoint's heads (`models/isn.py`) take the same bf16
-features and weights, and each row is routed by its scene argmax.
+points. Each bf16 convolution's bias, relu and residual add are one pass
+over its output (`ops/conv_epilogue.py`: a CUDA kernel on the card, with the
+rounding points of the separate operators; those operators on the CPU). An
+ISN checkpoint's heads (`models/isn.py`) take the same bf16 features and
+weights, and each row is routed by its scene argmax.
 
 Also here, as in the JAX module: the W-mirrored network (`mirror=True`),
 mirror TTA (`build_mirror_tta_apply`: five crops through the network and its
@@ -34,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ingest.pipeline import make_crops, normalize
+from ..ops.conv_epilogue import bias_add_relu_, bias_relu_
 from ..ops.fused_bottleneck import fold_bn, fused_bottleneck, fused_bottleneck_s2
 from ..utils.spans import span
 from .isn import route_rows
@@ -79,26 +83,29 @@ def _fold_block(sd, prefix, eps, fused, device, mirror=False):
             for i, a in enumerate(args)]
 
 
-def _conv_bias(x, k, b, stride=1, padding=0):
-    return F.conv2d(x, k, None, stride, padding) + b
+def _conv_bias_relu(x, k, b, stride=1, padding=0):
+    return bias_relu_(F.conv2d(x, k, None, stride, padding), b)
 
 
 def _conv_block(x, weights, stride, mirror=False):
     """Folded bottleneck as bf16 convolutions (any stride). With `mirror`,
     the W-mirrored block: a stride-2 3x3 pads its width (0, 1) and the
     stride-2 1x1 downsample (-1, 0), i.e. drops the first column; a
-    stride-1 block is its own mirror given flipped taps."""
+    stride-1 block is its own mirror given flipped taps. The downsample's
+    bias joins conv3's epilogue."""
     (k1, b1), (k2, b2), (k3, b3) = weights[:3]
     xd = x
-    y = torch.relu(_conv_bias(x, k1, b1))
+    y = _conv_bias_relu(x, k1, b1)
     if mirror and stride == 2:
-        y = torch.relu(_conv_bias(F.pad(y, (0, 1, 1, 1)), k2, b2, stride))
+        y = _conv_bias_relu(F.pad(y, (0, 1, 1, 1)), k2, b2, stride)
         xd = x[..., 1:]
     else:
-        y = torch.relu(_conv_bias(y, k2, b2, stride, 1))
-    y = _conv_bias(y, k3, b3)
-    res = x if len(weights) == 3 else _conv_bias(xd, *weights[3], stride)
-    return torch.relu(y + res)
+        y = _conv_bias_relu(y, k2, b2, stride, 1)
+    y = F.conv2d(y, k3)
+    if len(weights) == 3:
+        return bias_add_relu_(y, b3, x)
+    kd, bd = weights[3]
+    return bias_add_relu_(y, b3, F.conv2d(xd, kd, None, stride), bd)
 
 
 def _kernel_block(x, weights, kernel):
@@ -213,10 +220,10 @@ def build_fast_apply(state_dict, arch="resnet50", n_classes=None,
             if mirror:
                 # the mirrored width paddings: the stem's (2, 3), the pool's
                 # (0, 1) with -inf, as reduce_window pads
-                x = torch.relu(_conv_bias(F.pad(x, (2, 3, 3, 3)), *stem, 2))
+                x = _conv_bias_relu(F.pad(x, (2, 3, 3, 3)), *stem, 2)
                 return F.max_pool2d(
                     F.pad(x, (0, 1, 1, 1), value=float("-inf")), 3, stride=2)
-            x = torch.relu(_conv_bias(x, *stem, 2, 3))
+            x = _conv_bias_relu(x, *stem, 2, 3)
             return F.max_pool2d(x, 3, stride=2, padding=1)
 
     def make_stage_fn(blocks):

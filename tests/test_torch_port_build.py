@@ -78,10 +78,15 @@ def test_the_kernels_share_one_core_and_call_no_library():
     no copy of its helpers; the int8 convolution keeps its own: s8 wgmma on
     shared-memory tiles that TMA brings in, completed on mbarriers, with its
     epilogue's fmas written out; the train-mode BatchNorm's needs neither
-    and adds its blocks' sums with integer tickets, no float atomics; none
-    reaches a library kernel."""
+    and adds its blocks' sums with integer tickets, no float atomics; the
+    convolution epilogue needs none of these and rounds each float32 sum
+    to bf16 on its own; none reaches a library kernel."""
     fused = ["fused_bottleneck", "fused_bottleneck_s2"]
-    assert build.sources() == ["bn_train", "conv_s8"] + fused
+    assert build.sources() == ["bn_train", "conv_epilogue", "conv_s8"] + fused
+    epi = (build.CSRC_DIR / "conv_epilogue.cu").read_text()
+    for absent in ("bottleneck_sm90.cuh", "wgmma", "atomic", "__shared__"):
+        assert absent not in epi, absent
+    assert "__float2bfloat16_rn(__fadd_rn(" in epi
     bn = (build.CSRC_DIR / "bn_train.cu").read_text()
     assert "bottleneck_sm90.cuh" not in bn and "wgmma" not in bn
     tickets = [line.split("atomicAdd(")[1].split(",")[0]

@@ -599,3 +599,130 @@ def test_host_feed_keeps_a_staging_buffer_until_its_copy_is_done(cuda):
     assert queued_s < 0.25 < waited_s
     for arr, out in zip(arrays, outs):
         assert torch.equal(out.cpu(), torch.from_numpy(arr))
+
+
+# -- the fast path's convolution epilogue (csrc/conv_epilogue.cu) ----------------
+
+port_epi = importlib.import_module("geoestimation_tpu_torch.ops.conv_epilogue")
+port_fast = importlib.import_module(
+    "geoestimation_tpu_torch.models.fast_infer")
+# (C, H = W, form) of each distinct epilogue of ResNet101's fast forward at
+# 224 px (`chip_smoke.epilogue_shapes`)
+EPI_SHAPES = [
+    (64, 112, "bias_relu"),             # the stem
+    (128, 56, "bias_relu"),             # layer2.0 conv1
+    (128, 28, "bias_relu"),             # layer2.0 conv2
+    (512, 28, "bias_add_relu_ds"),      # layer2.0 conv3 and downsample
+    (256, 28, "bias_relu"),             # layer3.0 conv1
+    (256, 14, "bias_relu"),             # layer3's conv2, conv1 after 3.0
+    (1024, 14, "bias_add_relu_ds"),     # layer3.0 conv3 and downsample
+    (1024, 14, "bias_add_relu"),        # layer3.1-22 conv3
+    (512, 14, "bias_relu"),             # layer4.0 conv1
+    (512, 7, "bias_relu"),              # layer4's conv2, conv1 after 4.0
+    (2048, 7, "bias_add_relu_ds"),      # layer4.0 conv3 and downsample
+    (2048, 7, "bias_add_relu"),         # layer4.1-2 conv3
+]
+
+
+def test_epilogue_shapes_are_resnet101s(cuda):
+    smoke = importlib.import_module("chip_smoke")
+    shapes = smoke.epilogue_shapes("resnet101", n=640)
+    assert sorted(shapes) == sorted(((640, c, h, h), form)
+                                    for c, h, form in EPI_SHAPES)
+    assert sum(shapes.values()) == 82
+    assert sum(smoke.epilogue_shapes("resnet50").values()) == 31
+
+
+@pytest.mark.parametrize("n", [640, 3])
+@pytest.mark.parametrize("c, h, form", EPI_SHAPES)
+def test_conv_epilogue_matches_plain_bitwise(cuda, n, c, h, form):
+    """Each entry point on seeded maps with NaN and negative zero planted
+    (chip_smoke.py phase 16's check): one launch, in place, every bit (int16
+    views) that of the plain version."""
+    smoke = importlib.import_module("chip_smoke")
+    out = smoke.check_epilogue((n, c, h, h), form, seed=n)
+    assert out["nan"] > 0
+
+
+def test_conv_epilogue_refuses_what_the_kernel_does_not_take(cuda):
+    bf16, cl = torch.bfloat16, torch.channels_last
+    b = torch.zeros(64, dtype=bf16, device=cuda)
+    y = torch.zeros(2, 64, 4, 4, dtype=bf16, device=cuda)
+    with pytest.raises(ValueError, match="channels-last"):
+        port_epi.bias_relu_(y, b)
+    with pytest.raises(ValueError, match="channels-last"):
+        port_epi.bias_add_relu_(y.contiguous(memory_format=cl), b, y)
+    with pytest.raises(TypeError, match="bfloat16"):
+        port_epi.bias_relu_(y.float().contiguous(memory_format=cl), b)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        port_epi.bias_relu_(torch.zeros(2, 12, 4, 4, dtype=bf16, device=cuda)
+                            .contiguous(memory_format=cl), b[:12])
+    with pytest.raises(ValueError, match="64 contiguous bfloat16"):
+        port_epi.bias_relu_(y.contiguous(memory_format=cl), b.float())
+
+
+@pytest.mark.parametrize("mirror", [False, True])
+def test_resnet101_fast_network_matches_the_plain_epilogue(cuda, monkeypatch,
+                                                           mirror):
+    """The ResNet101 fast network (`use_pallas`) and its W-mirror on 6
+    seeded crops: 82 epilogue launches a forward, and logits bit for bit
+    those of the same network with the epilogue patched to its plain
+    version."""
+    from geoestimation_tpu_torch.tools import world
+
+    _, sd, _ = world.build_world(arch="resnet101", counts=(40, 120, 360))
+    apply = port_fast.build_fast_apply(sd, "resnet101", use_pallas=True,
+                                       device=cuda, mirror=mirror)
+    x = torch.from_numpy(np.random.default_rng(3).normal(
+        0, 1, (6, 224, 224, 3)).astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        launched = port_epi.launches
+        got = apply(x)
+        torch.cuda.synchronize()
+        assert port_epi.launches - launched == 82
+        monkeypatch.setattr(port_fast, "bias_relu_",
+                            port_epi.bias_relu_reference)
+        monkeypatch.setattr(port_fast, "bias_add_relu_",
+                            port_epi.bias_add_relu_reference)
+        want = apply(x)
+        torch.cuda.synchronize()
+    assert port_epi.launches - launched == 82
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("path, want", [("resnet50", 31), ("int8", 0),
+                                        ("train_step", 0)])
+def test_conv_epilogue_launches_by_path(cuda, path, want):
+    """conv_epilogue launches across one ResNet50 fast forward (`use_pallas`),
+    one int8 forward on conv_s8 and one train step (cuDNN through autograd
+    and bn_train)."""
+    from geoestimation_tpu_torch.models import quant
+    from geoestimation_tpu_torch.tools import bench_train, world
+
+    counts = (40, 120, 360)
+    if path == "resnet50":
+        _, sd, _ = world.build_world(counts=counts)
+        apply = port_fast.build_fast_apply(sd, "resnet50", use_pallas=True,
+                                           device=cuda)
+        x = torch.zeros((2, 224, 224, 3), device=cuda)
+        run = lambda: apply(x)   # noqa: E731
+    elif path == "int8":
+        from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline_s8
+
+        _, sd, _ = world.build_world(arch="resnet14", counts=counts)
+        images = torch.from_numpy(np.random.default_rng(1).integers(
+            0, 256, (2, 256, 256, 3), dtype=np.uint8)).to(cuda)
+        scales = quant.calibrate(sd, [images.cpu().numpy()], "resnet14",
+                                 device=cuda)
+        apply = quant.build_int8_apply(quant.quantize_model(sd, "resnet14"),
+                                       scales, device=cuda)
+        x = eval_pipeline_s8(images)
+        run = lambda: apply(x)   # noqa: E731
+    else:
+        _, _, _, run = bench_train.setup(4, "resnet14", n_classes=counts,
+                                         crop=64, base=72)
+    with torch.inference_mode(path != "train_step"):
+        launched = port_epi.launches
+        run()
+        torch.cuda.synchronize()
+    assert port_epi.launches - launched == want
