@@ -248,8 +248,6 @@ import multiprocessing
 import os
 import re
 import shutil
-import socket
-import subprocess
 import sys
 import tempfile
 import threading
@@ -283,6 +281,7 @@ from geoestimation_tpu_torch.ops import bn_train as ops_bn
 from geoestimation_tpu_torch.ops import conv_epilogue as ops_epi
 from geoestimation_tpu_torch.ops import conv_s8 as ops8
 from geoestimation_tpu_torch.ops import fused_bottleneck as ops
+from geoestimation_tpu_torch.parallel import launch
 from geoestimation_tpu_torch.serve import GeoInferenceServer
 from geoestimation_tpu_torch.tools import bench_train, world
 from geoestimation_tpu_torch.tools.bench_kernels import (
@@ -1725,67 +1724,36 @@ def rank_main(report_path, module, argv, fault=None):
         json.dump(report, f)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _start_ranks(tmp, name, cli, args, n=2, fault=None):
+    """n processes of the port's CLI `cli` in a world of their own
+    (`launch.Ranks`: the coordinator flags of their ranks when n > 1, the
+    rendezvous store, MP_TIMEOUT_S from the start), each with FAULTS[fault]
+    planted if given."""
+    reports = [os.path.join(tmp, f"{name}.rank{p}.json") for p in range(n)]
+    ranks = launch.Ranks(n, MP_TIMEOUT_S).popen(lambda p: [
+        sys.executable, os.path.abspath(__file__), "--rank", reports[p],
+        *(["--fault", fault] if fault else []), CLI + cli, *args])
+    return name, ranks, reports
 
 
-class _Ranks:
-    """Groups of `rank_main` processes; `close` kills what still runs."""
-
-    def __init__(self, tmp):
-        self.tmp, self.procs = tmp, []
-
-    def start(self, name, cli, args, n=2, fault=None):
-        """n processes of the port's CLI `cli` (with the coordinator flags
-        of their ranks when n > 1), each with FAULTS[fault] planted if
-        given."""
-        coord = f"127.0.0.1:{_free_port()}"
-        group = []
-        for p in range(n):
-            report = os.path.join(self.tmp, f"{name}.rank{p}.json")
-            cmd = [sys.executable, os.path.abspath(__file__), "--rank",
-                   report, *(["--fault", fault] if fault else []),
-                   CLI + cli, *args]
-            if n > 1:
-                cmd += ["--coordinator", coord, "--num_processes", str(n),
-                        "--process_id", str(p)]
-            group.append((subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True), report))
-        self.procs += [proc for proc, _ in group]
-        return name, group
-
-    def wait(self, started, timeout=MP_TIMEOUT_S):
-        """Each rank's report and output; fails if a rank failed or passed
-        `timeout` s (and then kills the group)."""
-        name, group = started
-        deadline = time.perf_counter() + timeout
-        outs = []
-        for proc, _ in group:
-            try:
-                outs.append(proc.communicate(timeout=max(
-                    1.0, deadline - time.perf_counter()))[0])
-            except subprocess.TimeoutExpired:
-                self.close()
-                raise RuntimeError(f"multi-process {name}: a rank passed "
-                                   f"the {timeout} s limit")
-        for p, ((proc, _), out) in enumerate(zip(group, outs)):
-            if proc.returncode != 0:
-                raise RuntimeError(f"multi-process {name}: rank {p} exited "
-                                   f"{proc.returncode}:\n{out[-3000:]}")
-        reports = []
-        for _, path in group:
-            with open(path) as f:
-                reports.append(json.load(f))
-        return reports, outs
-
-    def close(self):
-        for proc in self.procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+def _wait_ranks(started):
+    """Each rank's report and output; fails if a rank failed or passed the
+    limit (and then kills the group)."""
+    name, ranks, reports = started
+    try:
+        results = ranks.wait()
+    except TimeoutError:
+        raise RuntimeError(f"multi-process {name}: a rank passed the "
+                           f"{MP_TIMEOUT_S} s limit") from None
+    for p, (code, out) in enumerate(results):
+        if code != 0:
+            raise RuntimeError(f"multi-process {name}: rank {p} exited "
+                               f"{code}:\n{out[-3000:]}")
+    loaded = []
+    for path in reports:
+        with open(path) as f:
+            loaded.append(json.load(f))
+    return loaded, [out for _, out in results]
 
 
 def _gcd_km(lat1, lng1, lat2, lng2):
@@ -1886,7 +1854,7 @@ def _launch_gate(name, reports, kernel, want):
     return per_rank
 
 
-def _mp_eval(label, ranks, tmp, config, sd, parts):
+def _mp_eval(label, tmp, config, sd, parts):
     """Two-process test and inference CLIs (bf16) and int8 test CLI against
     one process each."""
     import pandas as pd
@@ -1899,22 +1867,22 @@ def _mp_eval(label, ranks, tmp, config, sd, parts):
            ("table", "table1", "int8", "int8_1", "preds", "preds1")}
     t0 = time.perf_counter()
     started = [
-        ranks.start("test", "test", test + ["--fast", "--json",
-                                             out["table"]]),
-        ranks.start("test1", "test", test + ["--fast", "--json",
-                                              out["table1"]], n=1),
-        ranks.start("inference", "inference", common + [
+        _start_ranks(tmp, "test", "test",
+                     test + ["--fast", "--json", out["table"]]),
+        _start_ranks(tmp, "test1", "test",
+                     test + ["--fast", "--json", out["table1"]], n=1),
+        _start_ranks(tmp, "inference", "inference", common + [
             "--image_dir", images, "--fast", "--pallas", "--output",
             out["preds"]]),
-        ranks.start("inference1", "inference", common + [
+        _start_ranks(tmp, "inference1", "inference", common + [
             "--image_dir", images, "--fast", "--pallas", "--output",
             out["preds1"]], n=1),
-        ranks.start("int8", "test", test + int8 + ["--json", out["int8"]]),
-        ranks.start("int8_1", "test", test + int8 + [
+        _start_ranks(tmp, "int8", "test",
+                     test + int8 + ["--json", out["int8"]]),
+        _start_ranks(tmp, "int8_1", "test", test + int8 + [
             "--calib_dir", images, "--json", out["int8_1"]], n=1),
     ]
-    (tst, tst1, inf, inf1, i8, i81) = [
-        ranks.wait(s)[0] for s in started]
+    (tst, tst1, inf, inf1, i8, i81) = [_wait_ranks(s)[0] for s in started]
     wall = time.perf_counter() - t0
     with open(out["table"]) as f:
         merged = json.load(f)
@@ -1978,7 +1946,7 @@ def _train_figures(reports, batch):
             "ms_per_step": float(np.mean(step_ms))}
 
 
-def _train_run(ranks, tmp, world_yml, name, n=2, fault=None, keep=False):
+def _train_run(tmp, world_yml, name, n=2, fault=None, keep=False):
     """train_base for MP_TRAIN_STEPS steps from the seed in n processes;
     each rank's report. The checkpoints (`tmp/ckpt_<name>`) are removed
     unless `keep`."""
@@ -1986,8 +1954,8 @@ def _train_run(ranks, tmp, world_yml, name, n=2, fault=None, keep=False):
     shutil.rmtree(ckpt, ignore_errors=True)
     args = ["--config", world_yml, "--max_steps", str(MP_TRAIN_STEPS),
             "--no_resume", "--checkpoint_dir", ckpt]
-    reports, _ = ranks.wait(ranks.start(name, "train_base", args, n=n,
-                                        fault=fault))
+    reports, _ = _wait_ranks(_start_ranks(tmp, name, "train_base", args,
+                                          n=n, fault=fault))
     if not keep:
         shutil.rmtree(ckpt)
     return reports
@@ -2092,10 +2060,10 @@ def _train_gate(name, pair, single, tmp, single_name=None,
             **readings, "gates_held": held}
 
 
-def _mp_train(label, ranks, tmp, world_yml, name="train"):
+def _mp_train(label, tmp, world_yml, name="train"):
     """train_base in one process, then in two on the same world and seed."""
-    single = _train_run(ranks, tmp, world_yml, f"{name}1", n=1)
-    pair = _train_run(ranks, tmp, world_yml, name)
+    single = _train_run(tmp, world_yml, f"{name}1", n=1)
+    pair = _train_run(tmp, world_yml, name)
     gate = _train_gate(name, pair, single, tmp)
     launches = [[s["launches"] for s in r["steps"]] for r in pair]
     line = {
@@ -2191,7 +2159,7 @@ def _ckpt_gate(tmp, name, n_ranks):
     return tuple(head)
 
 
-def _mp_model_axis(label, ranks, tmp, world_yml, single, name, even):
+def _mp_model_axis(label, tmp, world_yml, single, name, even):
     """train_base in two processes at mesh_shape [1, 2] (both ranks on the
     whole batch, the fused head split over them: its features for the
     published odd class count, its classes with one more coarse cell)
@@ -2203,10 +2171,10 @@ def _mp_model_axis(label, ranks, tmp, world_yml, single, name, even):
     single_name = "train1"
     if even:
         single_name = f"{name}1"
-        single = _train_run(ranks, tmp, _mesh_yml(
+        single = _train_run(tmp, _mesh_yml(
             tmp, world_yml, single_name, (1, 1), extra_coarse=True),
             single_name, n=1)
-    pair = _train_run(ranks, tmp, yml, name, keep=True)
+    pair = _train_run(tmp, yml, name, keep=True)
     gate = _train_gate(name, pair, single, tmp, single_name=single_name,
                        model_axis=True)
     head = _ckpt_gate(tmp, name, 2)
@@ -2239,11 +2207,11 @@ def _mp_model_axis(label, ranks, tmp, world_yml, single, name, even):
     return line
 
 
-def _mp_drift(label, ranks, tmp, world_yml):
+def _mp_drift(label, tmp, world_yml):
     """One process's run of `_mp_train` once more, held against the first
     the way a pair is (PERF.md §6, the pair's drift): how far two runs of
     one process on cuDNN in bf16 lie apart."""
-    again = _train_run(ranks, tmp, world_yml, "train1b", n=1)
+    again = _train_run(tmp, world_yml, "train1b", n=1)
     first = [s["loss"] for s in
              json.load(open(os.path.join(tmp, "train1.rank0.json")))
              ["steps"]]
@@ -2305,22 +2273,21 @@ def phase_multi(label, tmp, world_yml, config, sd, parts):
     in the train steps of both runs."""
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    ranks = _Ranks(tmp)
     try:
-        eval_launches = _mp_eval(label, ranks, tmp, config, sd, parts)
-        train, single = _mp_train(label, ranks, tmp, world_yml)
-        _mp_drift(label, ranks, tmp, world_yml)
-        model_axis = [_mp_model_axis(label, ranks, tmp, world_yml, single,
+        eval_launches = _mp_eval(label, tmp, config, sd, parts)
+        train, single = _mp_train(label, tmp, world_yml)
+        _mp_drift(label, tmp, world_yml)
+        model_axis = [_mp_model_axis(label, tmp, world_yml, single,
                                      name, even)
                       for name, even in (("train_model", False),
                                          ("train_model_even", True))]
         _mp_server(label, os.path.join(tmp, "mp_ckpt"))
         if torch.cuda.device_count() >= 2:
-            _mp_train(label, ranks, tmp, world_yml, name="train_nccl")
+            _mp_train(label, tmp, world_yml, name="train_nccl")
         else:
             _mp_print("nccl", "not run: 1 card")
     finally:
-        ranks.close()
+        launch.close_all()
     log(f"multi-process: phase 10 in {time.perf_counter() - t0:.1f} s")
     return (*eval_launches, train["kernel_launches_train_steps"],
             [int(x) for x in np.sum([m["kernel_launches_train_steps"]
@@ -3807,7 +3774,6 @@ def planted_faults():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
         world_yml = _shard_world(tmp)
-        ranks = _Ranks(tmp)
         try:
             held = {}
             for yml, name, single_yml, faults in (
@@ -3818,9 +3784,9 @@ def planted_faults():
                                extra_coarse=True), "train_classes",
                      _mesh_yml(tmp, world_yml, "world_classes1", (1, 1),
                                extra_coarse=True), MODEL_FAULTS)):
-                single = _train_run(ranks, tmp, single_yml, f"{name}1", n=1)
+                single = _train_run(tmp, single_yml, f"{name}1", n=1)
                 for fault in (None, *faults):
-                    pair = _train_run(ranks, tmp, yml, name, fault=fault)
+                    pair = _train_run(tmp, yml, name, fault=fault)
                     gate = _train_gate(name, pair, single, tmp,
                                        model_axis=faults is MODEL_FAULTS)
                     held[(name, fault)] = gate["gates_held"]
@@ -3828,7 +3794,7 @@ def planted_faults():
                                                 "fault": fault, **gate,
                                                 "card": label})
         finally:
-            ranks.close()
+            launch.close_all()
     log(f"planted faults in {time.perf_counter() - t0:.1f} s: gates held "
         f"{held}")
     clean = [v for (_, f), v in held.items() if f is None]

@@ -44,7 +44,8 @@ or under `torchrun --nproc_per_node N -m ...` with `--coordinator auto`
 (init_method env://: MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK). A process
 without --cpu runs on `cuda:{P % torch.cuda.device_count()}`. Collectives
 wait at most `initialize`'s `timeout_s` (DEFAULT_TIMEOUT_S, 1800) seconds
-for a peer.
+for a peer. The ranks of one host can also come from `launch.Ranks`, which
+holds the rendezvous store and starts the clock once every rank is there.
 """
 
 from __future__ import annotations
@@ -59,6 +60,8 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from . import launch
 
 DEFAULT_TIMEOUT_S = 1800.0
 
@@ -133,7 +136,15 @@ def initialize(coordinator_address: Optional[str] = None,
     device = _device_for(rank, cpu)
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group("gloo", init_method=init, timeout=timeout, **kw)
+    if init != "env://" and os.environ.get(
+            launch.STORE_ENV) == coordinator_address:
+        # a rank of `launch.Ranks`: its store, once every rank is there
+        dist.init_process_group("gloo", store=launch.meet(
+            coordinator_address, num_processes, timeout), timeout=timeout,
+            **kw)
+    else:
+        dist.init_process_group("gloo", init_method=init, timeout=timeout,
+                                **kw)
     world = dist.get_world_size()
     idents = [None] * world
     dist.all_gather_object(idents, (socket.gethostname(), _card_id(device),

@@ -2,13 +2,13 @@
 the card, against the profiler's own trace and against a run without them.
 Run from the root of a checkout, on a machine with a CUDA card:
 
-  python3 tools/span_check.py card
+  python3 -m geoestimation_tpu_torch.tools.span_check card
       Do the spans (FUNCTION-scope record-function ranges) stay off the
       device's timeline? A `record_function` range (USER_SCOPE) is traced
       beside them as the positive control, which the profiler mirrors there.
 
-  python3 tools/span_check.py traced TAG --workload CELL --seed N \\
-      --seconds S --trace 1 [--out DIR]
+  python3 -m geoestimation_tpu_torch.tools.span_check traced TAG \\
+      --workload CELL --seed N --seconds S --trace 1 [--out DIR]
       One benchmark run (`geobench.run`) whose traced window is kept whole:
       the device operations and idle gaps by name, the span summary, and
       for each root span (`engine.predict_batch`, `train.step`) the host's
@@ -16,8 +16,8 @@ Run from the root of a checkout, on a machine with a CUDA card:
       `DIR/TAG.json` (DIR defaults to `span_check/`) and prints one
       `SUMMARY` line.
 
-  python3 tools/span_check.py oncost --workload CELL --seed N --seconds S \\
-      --trace 1 [--rounds R]
+  python3 -m geoestimation_tpu_torch.tools.span_check oncost \\
+      --workload CELL --seed N --seconds S --trace 1 [--rounds R]
       The spans' cost in one process: after the measured window, the cell's
       own loop runs in blocks of about 0.8 s, each under the traced window's
       profiler, with the spans on and off in turns (on, off, off, on, ...);
@@ -229,5 +229,4 @@ def main(argv):
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, os.getcwd())
     main(sys.argv[1:])

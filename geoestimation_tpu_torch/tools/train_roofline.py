@@ -25,11 +25,11 @@ The port of the JAX package's `tools/train_roofline.py`, with its flags.
    peak_bw; the peaks default to an H100 SXM's bf16 tensor-core rate and
    HBM3 rate (`tools/card.py`).
    It runs on a CUDA card only and raises without one.
-3. `--collectives N`: N ranks on the CPU (gloo, spawned here) each take one
-   data-axis train step of the port at `--cpu_crop` px on its rows of the
-   global batch (`train/step.py`, `parallel/multihost.py`), every
-   `torch.distributed` collective issued inside the step recorded with its
-   payload bytes and caller, then bucketed: `grad_psum` (the flattened
+3. `--collectives N`: N ranks on the CPU (gloo, `parallel.launch`) each
+   take one data-axis train step of the port at `--cpu_crop` px on its
+   rows of the global batch (`train/step.py`, `parallel/multihost.py`),
+   every `torch.distributed` collective issued inside the step recorded
+   with its payload bytes and caller, then bucketed: `grad_psum` (the flattened
    gradient all-reduce, `multihost.all_reduce_grads`), `bn_stats` (the
    BatchNorm sums over the ranks in `models/resnet.py` `batch_norm_train`,
    `multihost.sum_over_ranks`, and the backward's per-channel sums,
@@ -46,16 +46,15 @@ import argparse
 import contextlib
 import json
 import os
-import socket
 import sys
 import tempfile
-import traceback
 
 import torch
 from torch.utils._pytree import tree_leaves
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from ..ops.bn_train import bn_train
+from ..parallel import launch
 from .card import H100_BF16_FLOPS, H100_BYTES_PER_S
 
 RANK_TIMEOUT_S = 600
@@ -210,57 +209,27 @@ def audit_step(batch, arch, remat, crop):
     return ops
 
 
-def _rank(rank, n, port, args, out_dir):
-    """The body of one spawned rank: writes its collectives (or its
-    traceback) under out_dir."""
-    torch.set_num_threads(1)
-    from ..parallel import multihost
-
-    try:
-        multihost.initialize(f"127.0.0.1:{port}", n, rank, cpu=True,
-                             timeout_s=RANK_TIMEOUT_S)
-        ops = audit_step(args["batch"], args["arch"], args["remat"],
-                         args["cpu_crop"])
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(ops, f)
-    except BaseException:
-        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        multihost.shutdown()
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+def _rank(rank, n, out_dir, args):
+    """The body of one rank: writes its collectives under out_dir."""
+    ops = audit_step(args["batch"], args["arch"], args["remat"],
+                     args["cpu_crop"])
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(ops, f)
 
 
 def run_ranks(n, args):
-    """Each of n spawned gloo ranks' recorded collectives, in rank order;
-    raises with a failed rank's traceback."""
-    ctx = torch.multiprocessing.get_context("spawn")
+    """Each of n gloo ranks' recorded collectives, in rank order; raises
+    with a failed rank's traceback."""
+    # the rank body by this module's name, also where it runs as __main__
+    from . import train_roofline
+
     with tempfile.TemporaryDirectory(prefix="train_roofline_") as tmp:
-        port = _free_port()
-        procs = [ctx.Process(target=_rank, args=(r, n, port, args, tmp))
-                 for r in range(n)]
-        for p in procs:
-            p.start()
-        try:
-            for p in procs:
-                p.join(RANK_TIMEOUT_S)
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join()
-        for r, p in enumerate(procs):
-            err = os.path.join(tmp, f"rank{r}.err")
-            if p.exitcode != 0:
-                why = open(err).read() if os.path.exists(err) else ""
+        ranks = launch.Ranks(n, RANK_TIMEOUT_S).start(
+            train_roofline._rank, tmp, args, timeout_s=RANK_TIMEOUT_S)
+        for r, (code, why) in enumerate(ranks.wait()):
+            if code != 0:
                 raise RuntimeError(f"train_roofline: rank {r} exited "
-                                   f"{p.exitcode}\n{why}")
+                                   f"{code}\n{why}")
         out = []
         for r in range(n):
             with open(os.path.join(tmp, f"rank{r}.json")) as f:

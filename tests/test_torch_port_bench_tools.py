@@ -18,17 +18,9 @@ import torch
 from geoestimation_tpu_torch.ingest import decode
 from geoestimation_tpu_torch.tools import bench_e2e_eval, bench_ingest
 from geoestimation_tpu_torch.tools import bench_stem
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: several test workers share this CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("content,size", [("photo", (48, 40)),

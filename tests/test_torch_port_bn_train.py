@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from geoestimation_tpu_torch.ops import bn_train as ops_bn
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 EPS = 1e-5
 

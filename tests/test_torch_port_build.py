@@ -7,6 +7,8 @@ import importlib
 
 import pytest
 
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
+
 build = importlib.import_module("geoestimation_tpu_torch.ops._build")
 
 

@@ -12,6 +12,7 @@ import torch
 from geoestimation_tpu_torch.models import fast_infer as port_fast
 from geoestimation_tpu_torch.ops import conv_epilogue as port_epi
 from geoestimation_tpu_torch.tools import world
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 FORMS = ["bias_relu", "bias_add_relu", "bias_add_relu_ds"]
 

@@ -13,6 +13,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
+
 ops = importlib.import_module("geoestimation_tpu_torch.ops.conv_s8")
 bench = importlib.import_module("geoestimation_tpu_torch.tools.bench_kernels")
 

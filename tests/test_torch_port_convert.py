@@ -16,6 +16,7 @@ from geoestimation_tpu.train.checkpoint import save_single
 from geoestimation_tpu.utils.config import Config as JaxConfig
 from geoestimation_tpu_torch.convert import from_jax_variables
 from geoestimation_tpu_torch.tools import world
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 ARCH = "resnet14"
 

@@ -23,19 +23,11 @@ from geoestimation_tpu_torch.models import tta_distill as ptd
 from geoestimation_tpu_torch.models.fast_infer import build_feature_tta_apply
 from geoestimation_tpu_torch.tools.world import seeded_jax_variables
 from geoestimation_tpu_torch.train.optim import Optimizer, constant_schedule
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 ARCH, N_CLASSES = "resnet14", (4, 7)
 CROP, LEVEL, N_CROPS = 48, 2, 10
 RTOL = ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: several test workers share this CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,6 @@ import ast
 import io
 import os
 import pathlib
-import shutil
 import subprocess
 import sys
 
@@ -29,6 +28,8 @@ from geoestimation_tpu_torch.eval import metrics as port_metrics
 from geoestimation_tpu_torch.geo import Hierarchy, load_partitionings
 from geoestimation_tpu_torch.ingest import decode as port_decode
 from geoestimation_tpu_torch.ingest.pipeline import eval_pipeline
+from tests.torch_port_world import NEW_YORK, PARIS, clustered_world
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 RNG = np.random.default_rng(21)
@@ -145,58 +146,14 @@ def test_decode_matches_jax_pil_path(fast_scale):
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
-    from geoestimation_tpu.geo import create_cells, load_partitionings as jlp
-    from geoestimation_tpu.train.checkpoint import (
-        load_for_inference,
-        save_single,
-    )
-    from geoestimation_tpu.train.init import init_model_state
-    from geoestimation_tpu.utils.config import Config
-
-    from geoestimation_tpu_torch.checkpoint import save_checkpoint
-    from geoestimation_tpu_torch.convert import from_jax_variables
-    from geoestimation_tpu_torch.utils.config import load_config
-
-    root = tmp_path_factory.mktemp("world")
-    rng = np.random.default_rng(11)
-    lat = np.concatenate([48.85 + rng.normal(0, .4, 2500),
-                          40.7 + rng.normal(0, .4, 2500)])
-    lng = np.concatenate([2.35 + rng.normal(0, .4, 2500),
-                          -74.0 + rng.normal(0, .4, 2500)])
-    files = []
-    for img_max, name in [(3000, "coarse"), (1000, "middle"), (400, "fine")]:
-        path = str(root / f"{name}.csv")
-        create_cells(lat, lng, img_min=10, img_max=img_max,
-                     name=name).partitioning.to_csv(path)
-        files.append(path)
-    config = Config()
-    config.model_params.arch = "resnet14"
-    config.model_params.partitionings.files = files
-    parts = jlp(files, names=["coarse", "middle", "fine"])
-    _, state = init_model_state(config, parts, seed=0, image_size=64)
-    jax_ckpt = str(root / "jax_ckpt")
-    save_single(jax_ckpt, state, config=config, step=0,
-                metrics={"val_loss": 1.0})
-
-    cfg, restored = load_for_inference(jax_ckpt)
-    sd = from_jax_variables(restored["params"], restored["batch_stats"],
-                            cfg.model_params.arch, [len(p) for p in parts])
-    port_ckpt = str(root / "port_ckpt")
-    save_checkpoint(port_ckpt, sd,
-                    load_config(os.path.join(jax_ckpt, "hparams.yaml")))
-
-    img_dir = root / "images"
-    img_dir.mkdir()
-    meta = []
-    for i in range(7):
-        arr = rng.integers(0, 255, (300 + 10 * i, 260, 3), dtype=np.uint8)
-        Image.fromarray(arr).save(img_dir / f"img_{i:03d}.jpg", quality=90)
-        meta.append((f"img_{i:03d}.jpg", 48.85 + 0.01 * i, 2.35))
-    meta.append(("not_in_dir.jpg", 0.0, 0.0))
-    pd.DataFrame(meta, columns=["IMG_ID", "LAT", "LON"]).to_csv(
-        root / "meta.csv", index=False)
-    return {"jax": jax_ckpt, "port": port_ckpt, "images": str(img_dir),
-            "meta": str(root / "meta.csv"), "root": root}
+    """The JAX package's initial resnet14 weights (`init_model_state`) as an
+    orbax checkpoint and the port's checkpoint converted from it, three
+    partitionings of points around Paris and New York, 7 non-square JPEGs
+    and a meta CSV with a row for an image not in the folder."""
+    return clustered_world(tmp_path_factory, seed=11,
+                           centers=(PARIS, NEW_YORK), n_per_center=2500,
+                           img_maxes=(3000, 1000, 400), n_images=7,
+                           init=True, missing_meta_row=True)
 
 
 @pytest.fixture
@@ -335,70 +292,63 @@ def test_inference_cli_fast_kernel_path_on_cpu(world, tmp_path, tta):
     np.testing.assert_array_equal(fast.pred_class, module.pred_class)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--precision", "8", "--feature_tta"], ["--feature_tta"],
-    ["--feature_tta_level", "2"], ["--num_processes", "2"],
-    ["--coordinator", "localhost:1234"],
-])
-def test_cli_refuses_flags_not_ported(world, flags, tmp_path,
-                                      jax_pil_decode):
-    """The multi-process flags, refused here until multi-process eval was
-    ported, are parsed as the JAX CLI parses them: an orphan --num_processes
-    exits with the JAX CLI's message, and --coordinator HOST:PORT without
-    the process flags exits naming them (tests/test_torch_port_multiprocess_
-    eval.py runs the flags in two processes). The feature-TTA flags, refused
-    here until the TTA variants were ported, do what the JAX CLI does with
-    them on the same checkpoint and images: --feature_tta gives its
-    predicted classes (bf16), and with --precision 8 its rows on the same
-    scales (the port's calib_dir cache, which the JAX CLI takes as its
-    own); --feature_tta_level alone changes nothing."""
+ORPHAN = "--num_processes/--process_id require --coordinator"
+
+
+@pytest.mark.parametrize("flags, message", [
+    (["--num_processes", "2"], ORPHAN), (["--process_id", "1"], ORPHAN),
+    (["--coordinator", "localhost:1234"], None),
+], ids=["num_processes", "process_id", "coordinator"])
+def test_cli_parses_the_process_flags_as_jax(world, flags, message):
+    """The multi-process flags are parsed as the JAX CLI parses them: an
+    orphan --num_processes or --process_id exits with the JAX CLI's
+    message, and --coordinator HOST:PORT without the process flags exits
+    naming them (tests/test_torch_port_multiprocess_eval.py runs the flags
+    in two processes)."""
     from classification.inference import main as jax_main
 
     from geoestimation_tpu_torch.classification.inference import main
 
     common = ["--image_dir", world["images"], "--cpu"] + flags
-    if "--num_processes" in flags:
-        messages = []
-        for run, ckpt in ((jax_main, world["jax"]), (main, world["port"])):
-            with pytest.raises(SystemExit) as e:
-                run(["--checkpoint", ckpt] + common)
-            messages.append(str(e.value))
-        assert messages[1] == messages[0] == \
-            "--num_processes/--process_id require --coordinator"
-        return
-    if "--coordinator" in flags:
+    if message is None:
         with pytest.raises(SystemExit, match="needs --num_processes and "
                                              "--process_id"):
             main(["--checkpoint", world["port"]] + common)
         return
-    int8 = "8" in flags
-    common += ["--batch_size", "8"]
-    if int8:
-        common += ["--crops", "5", "--calib_dir", world["images"],
-                   "--calib_images", "2", "--calib_stat", "absmax"]
-    caches = [os.path.join(world[k], "int8_scales.json")
-              for k in ("port", "jax")]
-    try:
-        main(["--checkpoint", world["port"], "--output",
-              str(tmp_path / "port.csv")] + common)
-        if int8:
-            shutil.copy(caches[0], caches[1])
-        jax_main(["--checkpoint", world["jax"], "--output",
-                  str(tmp_path / "jax.csv")] + common)
-    finally:
-        for path in caches:
-            if os.path.exists(path):
-                os.remove(path)
+    messages = []
+    for run, ckpt in ((jax_main, world["jax"]), (main, world["port"])):
+        with pytest.raises(SystemExit) as e:
+            run(["--checkpoint", ckpt] + common)
+        messages.append(str(e.value))
+    assert messages[1] == messages[0] == message
+
+
+@pytest.mark.parametrize("flags", [["--feature_tta"],
+                                   ["--feature_tta_level", "2"]],
+                         ids=["feature_tta", "feature_tta_level_alone"])
+def test_inference_cli_feature_tta_flags_match_jax(world, flags, tmp_path,
+                                                   jax_pil_decode):
+    """--feature_tta through both CLIs gives the JAX CLI's predicted
+    classes (bf16) on the same checkpoint and images, and
+    --feature_tta_level alone changes nothing, as in the JAX CLI. The
+    int8 feature-TTA forward is held to the JAX package's bit for bit in
+    tests/test_torch_port_tta.py (`test_int8_feature_tta_bitwise`,
+    `test_engine_feature_tta_int8_matches_jax`)."""
+    from classification.inference import main as jax_main
+
+    from geoestimation_tpu_torch.classification.inference import main
+
+    common = ["--image_dir", world["images"], "--cpu", "--batch_size",
+              "8"] + flags
+    main(["--checkpoint", world["port"], "--output",
+          str(tmp_path / "port.csv")] + common)
+    jax_main(["--checkpoint", world["jax"], "--output",
+              str(tmp_path / "jax.csv")] + common)
     ref = pd.read_csv(tmp_path / "jax.csv")
     got = pd.read_csv(tmp_path / "port.csv")
     assert len(got) == len(ref) == 7 * 4
     assert (got.img_id == ref.img_id).all() and (got.p_key == ref.p_key).all()
     np.testing.assert_array_equal(got.pred_class, ref.pred_class)
-    if int8:
-        np.testing.assert_allclose(got.pred_lat, ref.pred_lat, rtol=0,
-                                   atol=1e-5)
-        np.testing.assert_allclose(got.pred_lng, ref.pred_lng, rtol=0,
-                                   atol=1e-5)
 
 
 def test_cli_runs_on_cuda_unless_asked_for_cpu(world, monkeypatch):

@@ -16,6 +16,7 @@ from geoestimation_tpu_torch.checkpoint import load_checkpoint
 from geoestimation_tpu_torch.convert import from_jax_variables
 from geoestimation_tpu_torch.models.resnet import STAGE_SIZES
 from geoestimation_tpu_torch.tools import import_torch_checkpoint as port_imp
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "tools"))
 

@@ -18,6 +18,7 @@ from geoestimation_tpu.data import image_folder as jax_folder
 from geoestimation_tpu.ingest import decode as jax_decode
 from geoestimation_tpu_torch.data import image_folder as port_folder
 from geoestimation_tpu_torch.ingest import decode as port_decode
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 port_native = importlib.import_module("geoestimation_tpu_torch.ingest.native")
 

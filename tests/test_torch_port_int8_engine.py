@@ -19,6 +19,8 @@ from geoestimation_tpu_torch.eval.engine import (
     InferenceEngine,
     default_scales_path,
 )
+from tests.torch_port_world import NEW_YORK, PARIS, clustered_world
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 CACHE = "int8_scales.json"
 
@@ -28,52 +30,9 @@ def world(tmp_path_factory):
     """A resnet14 checkpoint in both packages' formats, with seeded weights
     and BatchNorm statistics (so every fold does work), three partitionings
     of clustered points, 7 non-square JPEGs and their meta CSV."""
-    from PIL import Image
-
-    from geoestimation_tpu.geo import create_cells
-    from geoestimation_tpu.train.checkpoint import save_single
-    from geoestimation_tpu.utils.config import Config as JaxConfig
-
-    from geoestimation_tpu_torch.checkpoint import save_checkpoint
-    from geoestimation_tpu_torch.convert import from_jax_variables
-    from geoestimation_tpu_torch.tools.world import seeded_jax_variables
-    from geoestimation_tpu_torch.utils.config import load_config
-
-    root = tmp_path_factory.mktemp("world8")
-    rng = np.random.default_rng(11)
-    lat = np.concatenate([48.85 + rng.normal(0, .4, 2500),
-                          40.7 + rng.normal(0, .4, 2500)])
-    lng = np.concatenate([2.35 + rng.normal(0, .4, 2500),
-                          -74.0 + rng.normal(0, .4, 2500)])
-    files, counts = [], []
-    for img_max, name in [(3000, "coarse"), (1000, "middle"), (400, "fine")]:
-        part = create_cells(lat, lng, img_min=10, img_max=img_max,
-                            name=name).partitioning
-        files.append(str(root / f"{name}.csv"))
-        part.to_csv(files[-1])
-        counts.append(len(part))
-    config = JaxConfig()
-    config.model_params.arch = "resnet14"
-    config.model_params.partitionings.files = files
-    params, stats = seeded_jax_variables(rng, "resnet14", counts)
-    jax_ckpt = str(root / "jax_ckpt")
-    save_single(jax_ckpt, {"params": params, "batch_stats": stats},
-                config=config, step=0, metrics={"val_loss": 1.0})
-    port_ckpt = str(root / "port_ckpt")
-    save_checkpoint(port_ckpt,
-                    from_jax_variables(params, stats, "resnet14", counts),
-                    load_config(os.path.join(jax_ckpt, "hparams.yaml")))
-    img_dir = root / "images"
-    img_dir.mkdir()
-    meta = []
-    for i in range(7):
-        arr = rng.integers(0, 255, (300 + 10 * i, 260, 3), dtype=np.uint8)
-        Image.fromarray(arr).save(img_dir / f"img_{i:03d}.jpg", quality=90)
-        meta.append((f"img_{i:03d}.jpg", 48.85 + 0.01 * i, 2.35))
-    pd.DataFrame(meta, columns=["IMG_ID", "LAT", "LON"]).to_csv(
-        root / "meta.csv", index=False)
-    return {"jax": jax_ckpt, "port": port_ckpt, "images": str(img_dir),
-            "meta": str(root / "meta.csv")}
+    return clustered_world(tmp_path_factory, seed=11,
+                           centers=(PARIS, NEW_YORK), n_per_center=2500,
+                           img_maxes=(3000, 1000, 400), n_images=7)
 
 
 @pytest.fixture
@@ -239,8 +198,8 @@ CROP, BASE = 64, 72
 
 @pytest.fixture(scope="module")
 def tiny(world):
-    """The world's weights and partitionings at 64-px crops, 8 distinct base
-    images, and a valid first-batch cache of them (absmax) as a template."""
+    """The world's weights and partitionings at 64-px crops, and 8 distinct
+    base images."""
     from geoestimation_tpu_torch.checkpoint import load_checkpoint
     from geoestimation_tpu_torch.geo import load_partitionings
 
@@ -260,16 +219,42 @@ def _engine(tiny, path, **kw):
                            int8_scales_path=str(path), **kw)
 
 
-def _valid_cache(tiny, path, **prov):
-    eng = _engine(tiny, path, calib_stat="absmax")
-    obj = pq.pack_scales(pq.calibrate(tiny[1], [tiny[3]],
-                                      eng.model_arch, n_crops=1, crop=CROP,
-                                      device="cpu"),
-                         weights_hash=eng._qhash, source="first_batch",
-                         n_images=8, stat="absmax", fast_decode=False,
-                         crop=CROP, n_crops=1)
+@pytest.fixture(scope="module")
+def first_batch(tiny):
+    """The engine's first-batch calibration of `tiny`'s 8 images (absmax,
+    as `_engine(..., calib_stat="absmax")` calls it), computed once, and a
+    valid cache of it: the template each trust rule changes."""
+    config, sd, _, images = tiny
+    arch = config.model_params.arch
+    scales = pq.calibrate(sd, [images], arch, n_crops=1, crop=CROP,
+                          stat="absmax", headroom=1.0, device="cpu")
+    cache = pq.pack_scales(scales, weights_hash=pq.weights_hash(
+        pq.quantize_model(sd, arch)), source="first_batch", n_images=8,
+        stat="absmax", fast_decode=False, crop=CROP, n_crops=1)
+    return scales, cache
+
+
+def _valid_cache(first_batch, **prov):
+    obj = json.loads(json.dumps(first_batch[1]))
     obj["provenance"].update(prov)
     return obj
+
+
+def _calibrated_once(monkeypatch, tiny, first_batch):
+    """`pq.calibrate` on `tiny`'s batch at the engine's absmax arguments
+    gives `first_batch`'s scales without another float32 pass; any other
+    call calibrates."""
+    calibrate = pq.calibrate
+
+    def once(sd, batches, arch, **kw):
+        if (sd is tiny[1] and len(batches) == 1
+                and np.array_equal(batches[0], tiny[3])
+                and kw == dict(n_crops=1, crop=CROP, stat="absmax",
+                               headroom=1.0, device="cpu")):
+            return dict(first_batch[0])
+        return calibrate(sd, batches, arch, **kw)
+
+    monkeypatch.setattr(pq, "calibrate", once)
 
 
 # (what is changed in a valid cache, whether the engine trusts it)
@@ -286,14 +271,15 @@ CACHE_CASES = {
 
 
 @pytest.mark.parametrize("case", list(CACHE_CASES))
-def test_scales_cache_trust_rules(tiny, tmp_path, monkeypatch, capsys, case):
+def test_scales_cache_trust_rules(tiny, first_batch, tmp_path, monkeypatch,
+                                  capsys, case):
     """As the JAX engine: a cache is trusted only for the same weights hash,
     pixel pipeline (fast_decode, crop, n_crops) and settings (stat,
     headroom), QAT/distillation scales on the hash alone; anything else
     recalibrates on the first batch (8 distinct images: persisted)."""
     change, trusted = CACHE_CASES[case]
     path = tmp_path / CACHE
-    obj = _valid_cache(tiny, path)
+    obj = _valid_cache(first_batch)
     if change is None:
         obj = dict(obj["scales"])      # the legacy flat {site: scale} format
     else:
@@ -301,6 +287,8 @@ def test_scales_cache_trust_rules(tiny, tmp_path, monkeypatch, capsys, case):
     path.write_text(json.dumps(obj))
     if trusted:
         _no_calibration(monkeypatch, pq)
+    else:
+        _calibrated_once(monkeypatch, tiny, first_batch)
     eng = _engine(tiny, path, calib_stat="absmax")
     preds = eng.predict_batch(tiny[3])
     assert sorted(preds) == eng.pred_keys
@@ -329,15 +317,15 @@ def test_few_distinct_images_are_not_persisted(tiny, tmp_path):
     assert not path.exists()
 
 
-def test_first_batch_keeps_calib_dir_cache_unlike_jax(tiny, tmp_path,
-                                                      capsys):
+def test_first_batch_keeps_calib_dir_cache_unlike_jax(tiny, first_batch,
+                                                      tmp_path, capsys):
     """The one deliberate divergence from the JAX engine (ADVICE.md's cache
     downgrade, JAX `eval/engine.py:390`): a cache made from a calib_dir and
     rejected for a run's settings is not replaced by that run's first-batch
     calibration -- the JAX engine replaces it -- unless int8_recalibrate;
     one log line says so."""
     path = tmp_path / CACHE
-    obj = _valid_cache(tiny, path, source="calib_dir",
+    obj = _valid_cache(first_batch, source="calib_dir",
                        calib_fingerprint="f00")
     path.write_text(json.dumps(obj))
     eng = _engine(tiny, path, calib_stat="p999")     # other settings

@@ -30,6 +30,8 @@ from geoestimation_tpu_torch.models import qat as pqat
 from geoestimation_tpu_torch.models import quant as pq
 from geoestimation_tpu_torch.models.isn import ISNClassifier
 from geoestimation_tpu_torch.tools.world import seeded_jax_variables
+from tests.torch_port_world import NEW_YORK, PARIS, clustered_world
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 ARCH = "resnet14"
 N_CLASSES = (5, 7, 11)
@@ -217,51 +219,10 @@ def test_teacher_isn_head_matches_jax(net, int8_nets):
 def world(tmp_path_factory):
     """An ISN resnet14 checkpoint in both packages' formats (orbax, and the
     port's directory from it), three partitionings and three JPEGs."""
-    from PIL import Image
-
-    from geoestimation_tpu.geo import create_cells
-    from geoestimation_tpu.train.checkpoint import (
-        load_for_inference,
-        save_single,
-    )
-    from geoestimation_tpu.utils.config import Config as JaxConfig
-
-    from geoestimation_tpu_torch.checkpoint import save_checkpoint
-    from geoestimation_tpu_torch.utils.config import load_config
-
-    root = tmp_path_factory.mktemp("isn_world")
-    rng = np.random.default_rng(37)
-    lat = np.concatenate([48.85 + rng.normal(0, .4, 1500),
-                          40.7 + rng.normal(0, .4, 1500)])
-    lng = np.concatenate([2.35 + rng.normal(0, .4, 1500),
-                          -74.0 + rng.normal(0, .4, 1500)])
-    files, counts = [], []
-    for img_max, name in [(2000, "coarse"), (700, "middle"), (300, "fine")]:
-        part = create_cells(lat, lng, img_min=10, img_max=img_max,
-                            name=name).partitioning
-        files.append(str(root / f"{name}.csv"))
-        part.to_csv(files[-1])
-        counts.append(len(part))
-    config = JaxConfig()
-    config.model_params.arch = ARCH
-    config.model_params.partitionings.files = files
-    config.model_params.scene_gating = True
-    params, stats = seeded_jax_variables(rng, ARCH, counts, N_SCENES)
-    jax_ckpt = str(root / "jax_ckpt")
-    save_single(jax_ckpt, {"params": params, "batch_stats": stats},
-                config=config, step=0, metrics={"val_loss": 1.0})
-    cfg, restored = load_for_inference(jax_ckpt)
-    port_ckpt = str(root / "port_ckpt")
-    save_checkpoint(port_ckpt, from_jax_variables(
-        restored["params"], restored["batch_stats"], ARCH, counts),
-        load_config(os.path.join(jax_ckpt, "hparams.yaml")))
-    img_dir = root / "images"
-    img_dir.mkdir()
-    for i in range(3):
-        arr = rng.integers(0, 255, (280 + 10 * i, 260, 3), dtype=np.uint8)
-        Image.fromarray(arr).save(img_dir / f"img_{i:03d}.jpg", quality=90)
-    return {"jax": jax_ckpt, "port": port_ckpt, "images": str(img_dir),
-            "config": cfg, "restored": restored}
+    return clustered_world(tmp_path_factory, seed=37,
+                           centers=(PARIS, NEW_YORK), n_per_center=1500,
+                           img_maxes=(2000, 700, 300), n_images=3,
+                           first_height=280, n_scenes=N_SCENES)
 
 
 @pytest.fixture

@@ -24,6 +24,7 @@ from geoestimation_tpu_torch.models import fast_infer as port_fast
 from geoestimation_tpu_torch.models.classifier import (
     MultiPartitioningClassifier as PortClassifier,
 )
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 N_CLASSES = (7, 13, 29)
 ARCH = "resnet14"

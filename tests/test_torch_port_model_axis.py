@@ -42,6 +42,7 @@ from geoestimation_tpu_torch.models import classifier
 from geoestimation_tpu_torch.train import step
 from tests import torch_ranks
 from tests.test_torch_port_train import _states
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 ARCH = torch_ranks.ARCH
 EVEN, ODD = (3, 5, 8), (3, 5, 9)       # 16 and 17 classes
@@ -96,7 +97,6 @@ def _split_head_forward(self, features):
 def _one_process(n_classes):
     """The port's one-process steps on the global batch: the metrics and
     the whole state after each step."""
-    torch.set_num_threads(1)
     images, labels = _global_batch(n_classes)
     state = torch_ranks.seeded_state(n_classes=n_classes)
     metrics, states = [], []
@@ -138,20 +138,21 @@ def _jax_step():
 
 @pytest.fixture(scope="module")
 def model_axis(tmp_path_factory):
-    """Every case's ranks, started together; while they run, the one-process
-    references and the JAX mesh's steps here."""
+    """Every case's ranks, started together, each world with a limit of
+    240 s; while they run, the one-process references and the JAX mesh's
+    steps here."""
     started = {}
     for name, (world, n_classes, shapes) in CASES.items():
         images, labels = _global_batch(n_classes)
         out = tmp_path_factory.mktemp(name)
         started[name] = (out, torch_ranks.start(
             torch_ranks.model_axis_steps, out, shapes, n_classes, images,
-            labels, CROP, world=world))
+            labels, CROP, world=world, limit_s=240))
     refs = {n: _reference(n) for n in (EVEN, ODD)}
     jax_sd = _jax_step()
     ranks = {}
     for name, (out, procs) in started.items():
-        torch_ranks.join(procs, timeout=240)
+        torch_ranks.join(procs)
         ranks[name] = [torch.load(out / f"model_axis{r}.pt")
                        for r in range(CASES[name][0])]
     return ranks, refs, jax_sd, {n: o for n, (o, _) in started.items()}
@@ -323,7 +324,6 @@ def test_trainer_fit_on_the_model_axis_matches_one_process(
         str(root), world.seeded_partitionings(np.random.default_rng(3), ODD),
         config, per_shard=8, n_val=4, sizes=(40, 48))
     started = torch_ranks.start(torch_ranks.mesh_fit, root, path, (1, 2))
-    torch.set_num_threads(1)
     single = load_config(path)
     single.train_params.checkpoint_dir = str(root / "ckpt1")
     Trainer(single, device="cpu", log_fn=lambda *_: None).fit(

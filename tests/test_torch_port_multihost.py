@@ -31,6 +31,7 @@ from tests.test_torch_port_train import (
     _states,
     jax_crop_draws,
 )
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 ARCH, N_CLASSES = torch_ranks.ARCH, torch_ranks.N_CLASSES
 

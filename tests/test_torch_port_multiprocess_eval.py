@@ -6,16 +6,15 @@ deriving the same scales, the engine's `layout` over two CPU devices, and
 
 Each rank is a subprocess running the CLI's `main` with one torch thread,
 a 30 s collective timeout, the TensorBoard import failed (it would import
-TensorFlow) and a time limit of its own; a failing rank fails its peer at
+TensorFlow), in a world of its ranks (`launch.Ranks`: their rendezvous
+store, and a time limit from its start); a failing rank fails its peer at
 the next collective (gloo), and the limit kills the rest.
 """
 
 import json
 import os
 import pathlib
-import subprocess
 import sys
-import time
 
 import numpy as np
 import pandas as pd
@@ -32,14 +31,16 @@ from geoestimation_tpu_torch.checkpoint import (
 )
 from geoestimation_tpu_torch.convert import from_jax_variables
 from geoestimation_tpu_torch.eval.engine import InferenceEngine
+from geoestimation_tpu_torch.parallel.launch import Ranks
 from geoestimation_tpu_torch.parallel.mesh import make_mesh
 from geoestimation_tpu_torch.tools import world
 from geoestimation_tpu_torch.utils.config import load_config
-from tests.torch_ranks import free_port
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ARCH = "resnet14"
 N_IMAGES = 10
+LIMIT_S = 90           # a world of ranks, from its start
 RUN = ("import sys; sys.modules['torch.utils.tensorboard'] = None; "
        "from geoestimation_tpu_torch.parallel import multihost; "
        "multihost.DEFAULT_TIMEOUT_S = 30; "
@@ -47,48 +48,28 @@ RUN = ("import sys; sys.modules['torch.utils.tensorboard'] = None; "
        "sys.argv[2:])")
 
 
-@pytest.fixture(autouse=True)
-def one_thread_no_tensorboard(monkeypatch):
-    """As tests/test_torch_port_train.py: one intra-op thread for the
-    in-process runs, and no TensorFlow import through TensorBoard."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
-    yield
-    torch.set_num_threads(threads)
-
-
 def launch(cli, args, n=2):
     """`n` ranks of geoestimation_tpu_torch.classification.`cli` on the
-    CPU; `args` a list, or a function of the rank."""
-    coord = f"127.0.0.1:{free_port()}"
+    CPU, a world of their own (`Ranks`) that ends `LIMIT_S` s after
+    its start; `args` a list, or a function of the rank."""
     env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    return [subprocess.Popen(
-        [sys.executable, "-c", RUN,
-         f"geoestimation_tpu_torch.classification.{cli}",
-         *(args(p) if callable(args) else args), "--cpu",
-         "--coordinator", coord, "--num_processes", str(n),
-         "--process_id", str(p)],
-        cwd=str(REPO), env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for p in range(n)]
+    return Ranks(n, LIMIT_S).popen(lambda p: [
+        sys.executable, "-c", RUN,
+        f"geoestimation_tpu_torch.classification.{cli}",
+        *(args(p) if callable(args) else args), "--cpu"],
+        env=env, cwd=str(REPO))
 
 
-def finish(procs, timeout=90, ok=True):
-    """Each rank's output; every rank killed at `timeout` s; each must exit
-    0 (or, with ok=False, non-zero)."""
-    deadline = time.time() + timeout
-    outs = []
-    for p in procs:
-        try:
-            outs.append(p.communicate(
-                timeout=max(1.0, deadline - time.time()))[0])
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise AssertionError(f"a rank passed the {timeout} s limit")
-    for p, out in zip(procs, outs):
-        assert (p.returncode == 0) == ok, out[-4000:]
-    return outs
+def finish(ranks, ok=True):
+    """Each rank's output; each must exit 0 (or, with ok=False,
+    non-zero)."""
+    try:
+        results = ranks.wait()
+    except TimeoutError as e:
+        raise AssertionError(str(e)) from None
+    for code, out in results:
+        assert (code == 0) == ok, out[-4000:]
+    return [out for _, out in results]
 
 
 # -- evaluation ---------------------------------------------------------------

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
+
 # the modules, not the functions their packages export under the same name
 jax_fb = importlib.import_module("geoestimation_tpu.ops.fused_bottleneck")
 port_fb = importlib.import_module("geoestimation_tpu_torch.ops.fused_bottleneck")

@@ -22,6 +22,7 @@ from PIL import Image
 from geoestimation_tpu.geo import create_cells as jax_create_cells
 from geoestimation_tpu.geo import s2 as jax_s2
 from geoestimation_tpu_torch.geo import create_cells, native, s2
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_S2_DIR = REPO / "geoestimation_tpu" / "geo" / "cpp"

@@ -21,19 +21,11 @@ from geoestimation_tpu_torch.models import qat as pqat
 from geoestimation_tpu_torch.models import quant as pq
 from geoestimation_tpu_torch.train.optim import Optimizer, constant_schedule
 from geoestimation_tpu_torch.tools.world import seeded_jax_variables
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 ARCH, N_CLASSES, CROP = "resnet14", (4, 7), 64
 SPREAD_TOL = 0.02     # of each head's logit spread, as tests/test_qat.py:200
 MODES = ["half_up", "rne"]
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """One intra-op thread: several test workers share this CPU."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _variables(seed, n_scenes=None):

@@ -20,6 +20,7 @@ from geoestimation_tpu_torch.models import qat as pqat
 from geoestimation_tpu_torch.models import quant as pq
 from geoestimation_tpu_torch.ops import conv_s8 as ops
 from geoestimation_tpu_torch.tools.world import seeded_jax_variables
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 # resnet14's widths with a second, identity, block in layer1 and layer2:
 # resnet14 itself has only stage-entry blocks
@@ -488,33 +489,12 @@ def test_build_int8_pipeline_matches_jax(net):
 
 # -- what the port refuses ---------------------------------------------------
 
-def test_not_ported_options_raise(net, scales, monkeypatch):
-    """The TPU probe still raises by name. `feature_tta` and ISN heads
-    (and QAT's fake-quant forward, tests/test_torch_port_qat.py), refused
-    here until ported, now build as in the JAX package: a
-    feature-TTA forward of the base images, and an ISN net's routed heads
-    (tests/test_torch_port_tta.py and test_torch_port_isn.py hold both to
-    the JAX package bit for bit)."""
-    feature = pq.build_int8_apply(net["pq"], scales, n_classes=N_CLASSES,
-                                  device="cpu",
-                                  feature_tta={"crop": CROP, "n_crops": 5})
-    rng = np.random.default_rng(9)
-    # the crop grid on the layer3 map: (base - crop) a multiple of 32
-    base = shift_s8(torch.from_numpy(rng.integers(
-        0, 256, (2, CROP + 32, CROP + 32, 3), dtype=np.uint8)))
-    assert [tuple(o.shape) for o in feature(base)] == [
-        (10, n) for n in N_CLASSES]
-    isn_heads = {"scene_head": {"kernel": rng.normal(
-                     0, 0.05, (2048, 3)).astype(np.float32),
-                     "bias": np.zeros(3, np.float32)},
-                 "scene_geo_heads": {"kernel": rng.normal(
-                     0, 0.05, (2048, 3 * sum(N_CLASSES))).astype(np.float32),
-                     "bias": np.zeros(3 * sum(N_CLASSES), np.float32)}}
-    isn = pq.build_int8_apply({**net["pq"], "isn": True, "heads": isn_heads},
-                              scales, n_classes=N_CLASSES, device="cpu")
-    x = torch.from_numpy(np.array(jax_s8(jnp.asarray(net["images"]),
-                                         n_crops=1, crop=CROP)))
-    assert [tuple(o.shape) for o in isn(x)] == [(2, n) for n in N_CLASSES]
+def test_requant_probe_raises_by_name(net, scales, monkeypatch):
+    """The TPU requant probe is not ported and raises by name. (The int8
+    feature-TTA forward and ISN heads, refused here once, are held to the
+    JAX package bit for bit in tests/test_torch_port_tta.py,
+    `test_int8_feature_tta_bitwise`, and tests/test_torch_port_isn.py,
+    `test_int8_isn_bitwise`.)"""
     monkeypatch.setenv("GEO_REQUANT_PROBE", "trunc")
     with pytest.raises(NotImplementedError, match="GEO_REQUANT_PROBE"):
         pq.build_int8_apply(net["pq"], scales, device="cpu")

@@ -10,7 +10,6 @@ rendering and the int8 gate's exit code."""
 import json
 import os
 import pathlib
-import sys
 
 import numpy as np
 import pandas as pd
@@ -22,21 +21,11 @@ from geoestimation_tpu_torch.checkpoint import load_checkpoint
 from geoestimation_tpu_torch.models import qat as pqat
 from geoestimation_tpu_torch.tools import world
 from geoestimation_tpu_torch.utils.config import load_config
+from tests.torch_port_world import PARIS, clustered_world
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 ARCH = "resnet14"
-
-
-@pytest.fixture(autouse=True)
-def one_thread_no_tensorboard(monkeypatch):
-    """One intra-op thread (several test workers share this CPU), and the
-    TensorBoard mirror's import failed, which the trainer takes silently:
-    here it would import TensorFlow."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _images(path, n, seed, size=(80, 80)):
@@ -65,10 +54,7 @@ def trained(tmp_path_factory):
     tp.train_crop_scale = [0.5, 1.0]
     path = world.write_shard_world(str(root), parts, config, per_shard=16,
                                    n_val=8, sizes=(72, 96))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
     train_base.main(["--config", path, "--max_steps", "2", "--cpu"])
-    torch.set_num_threads(threads)
     return {"ckpt": str(root / "ckpt"), "root": root,
             "images": _images(root / "images", 4, 3)}
 
@@ -184,39 +170,15 @@ def test_tta_distill_exports_with_distill_scales(trained, tmp_path, capsys):
 def both(tmp_path_factory):
     """One seeded resnet14 checkpoint as a JAX orbax directory and as a port
     directory, 6 images and their meta CSV."""
-    from geoestimation_tpu.geo import create_cells
-    from geoestimation_tpu.train.checkpoint import save_single
-    from geoestimation_tpu.utils.config import Config
-    from geoestimation_tpu_torch.checkpoint import save_checkpoint
-    from geoestimation_tpu_torch.convert import from_jax_variables
-
-    root = tmp_path_factory.mktemp("study_world")
-    rng = np.random.default_rng(11)
-    lat = 48.85 + rng.normal(0, .4, 3000)
-    lng = 2.35 + rng.normal(0, .4, 3000)
-    files = []
-    for img_max, name in [(3000, "coarse"), (800, "middle"), (300, "fine")]:
-        files.append(str(root / f"{name}.csv"))
-        create_cells(lat, lng, img_min=10, img_max=img_max,
-                     name=name).partitioning.to_csv(files[-1])
-    counts = [len(pd.read_csv(f)) for f in files]
-    params, stats = world.seeded_jax_variables(rng, ARCH, counts)
-    config = Config()
-    config.model_params.arch = ARCH
-    config.model_params.partitionings.files = files
-    jax_ckpt = str(root / "jax_ckpt")
-    save_single(jax_ckpt, {"params": params, "batch_stats": stats,
-                           "step": 0}, config=config, step=0,
-                metrics={"val_loss": 1.0})
-    port_ckpt = str(root / "port_ckpt")
-    save_checkpoint(port_ckpt, from_jax_variables(params, stats, ARCH,
-                                                  counts),
-                    load_config(os.path.join(jax_ckpt, "hparams.yaml")))
+    w = clustered_world(tmp_path_factory, seed=11, centers=(PARIS,),
+                        n_per_center=3000, img_maxes=(3000, 800, 300),
+                        step_in_state=True)
+    root = tmp_path_factory.mktemp("study_images")
     images = _images(root / "images", 6, 5, size=(260, 300))
     meta = [(f"x_{i}.jpg", 48.85 + 0.2 * i, 2.35 - 0.1 * i) for i in range(6)]
     pd.DataFrame(meta, columns=["IMG_ID", "LAT", "LON"]).to_csv(
         root / "meta.csv", index=False)
-    return {"jax": jax_ckpt, "port": port_ckpt, "images": images,
+    return {"jax": w["jax"], "port": w["port"], "images": images,
             "meta": str(root / "meta.csv")}
 
 

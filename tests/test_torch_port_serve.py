@@ -21,6 +21,7 @@ from PIL import Image
 from geoestimation_tpu_torch.ingest import decode as port_decode
 from geoestimation_tpu_torch.serve import GeoInferenceServer, MicroBatcher
 from geoestimation_tpu_torch.serve import server as port_server
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BASE, CROP = 64, 56

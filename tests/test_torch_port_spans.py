@@ -9,6 +9,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from geoestimation_tpu_torch.utils import spans
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 READERS = {   # the benchmark's readers of the spans: (span, key per call)
     "engine.upload_gbps": None, "engine.host_ms": None,
@@ -22,14 +23,10 @@ READERS = {   # the benchmark's readers of the spans: (span, key per call)
 
 @pytest.fixture(autouse=True)
 def fresh_record():
-    """An empty record, and one intra-op thread for the small CPU models
-    (several test workers share the cores)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    """An empty record."""
     spans.reset()
     yield
     spans.reset()
-    torch.set_num_threads(threads)
 
 
 def cpu_profile():
@@ -284,16 +281,12 @@ def test_benchmark_reader(name, monkeypatch):
 
 
 def test_span_check_splits_a_roots_blocking_time():
-    """`tools/span_check.py`'s reduction of a traced window: per call of a
-    root span, its wall, its outermost `.wait` spans, and the blocking
-    runtime calls inside and outside them (times in microseconds)."""
-    import importlib.util
-    from pathlib import Path
+    """`geoestimation_tpu_torch/tools/span_check.py`'s reduction of a traced
+    window: per call of a root span, its wall, its outermost `.wait` spans,
+    and the blocking runtime calls inside and outside them (times in
+    microseconds)."""
+    from geoestimation_tpu_torch.tools import span_check as check
 
-    path = Path(__file__).resolve().parents[1] / "tools" / "span_check.py"
-    spec = importlib.util.spec_from_file_location("span_check", path)
-    check = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(check)
     host = [
         ("engine.predict_batch", 0, 20000),
         ("engine.upload", 100, 2100),

@@ -6,7 +6,6 @@ and ISN), the metrics CSV, and `train_base` end to end on the CPU."""
 import io
 import os
 import pathlib
-import sys
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +38,7 @@ from geoestimation_tpu_torch.train import loop, optim, step
 from geoestimation_tpu_torch.train.init import init_weights
 from geoestimation_tpu_torch.utils import logging as port_logging
 from geoestimation_tpu_torch.utils.config import load_config
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 RNG = np.random.default_rng(8)
@@ -52,21 +52,6 @@ def jpeg_bytes(rng, h, w):
     Image.fromarray(rng.integers(0, 255, (h, w, 3), dtype=np.uint8)).save(
         buf, format="JPEG", quality=85)
     return buf.getvalue()
-
-
-@pytest.fixture(autouse=True)
-def one_thread_no_tensorboard(monkeypatch):
-    """One intra-op thread for these small tensors: with several test
-    workers on the CPU, torch's eight-thread barriers stall on threads that
-    wait for a core (a train step of the end-to-end test went from 0.1 s to
-    30 s). And the TensorBoard mirror's import fails, which `MetricsLogger`
-    takes silently, as the JAX package's does: here it would import
-    TensorFlow, 10-35 s."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture

@@ -17,19 +17,12 @@ import pytest
 import torch
 
 from geoestimation_tpu_torch.tools import bench_train, train_roofline
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 AUDIT = ["--collectives", "2", "--arch", "resnet14", "--batch", "4",
          "--cpu_crop", "32"]
 CLASSES = (3298, 7202, 12893)      # the published counts, the tool's heads
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

@@ -25,6 +25,7 @@ from geoestimation_tpu_torch.ingest.pipeline import (
 from geoestimation_tpu_torch.models import fast_infer as port_fast
 from geoestimation_tpu_torch.models import quant as pq
 from geoestimation_tpu_torch.tools.world import seeded_jax_variables
+from tests.torch_port_world import one_thread_no_tensorboard  # noqa: F401
 
 ARCH = "resnet14"
 N_CLASSES = (5, 7, 11)

@@ -1,88 +1,45 @@
 """Rank bodies of the port's multi-process CPU tests.
 
-`start` starts `world` processes (torch.multiprocessing, spawn), each of
-which joins a gloo group on the CPU with a 30 s collective timeout, pins
-torch to one thread, fails the TensorBoard import (it would import
-TensorFlow) and runs one of the bodies below, which write what they saw
-under `out_dir`. This module imports no JAX, so the ranks start quickly.
+`start` starts `world` ranks of their own (`launch.Ranks`: forked from a
+forkserver that has imported torch and the port once, joined in a gloo
+group on the CPU with a 30 s collective timeout only once every rank is
+there, one torch thread, the TensorBoard import failed), each running one
+of the bodies below, which write what they saw under `out_dir`. A world
+ends at its own time limit, counted from its start. This module imports no
+JAX.
 """
 
 import contextlib
 import os
-import socket
-import sys
-import time
-import traceback
 
 import numpy as np
 import torch
 
+from geoestimation_tpu_torch.parallel import launch
+
 N_CLASSES = (3, 5, 9)
 ARCH = "resnet14"
-TIMEOUT_S = 30
+TIMEOUT_S = 30       # a collective's longest wait
+LIMIT_S = 120        # a world's, from its start
 
 
-def free_port():
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
-def _main(fn, rank, world, port, out_dir, args):
-    torch.set_num_threads(1)
-    sys.modules["torch.utils.tensorboard"] = None
-    from geoestimation_tpu_torch.parallel import multihost
-
-    try:
-        multihost.initialize(f"127.0.0.1:{port}", world, rank, cpu=True,
-                             timeout_s=TIMEOUT_S)
-        fn(rank, world, out_dir, *args)
-    except BaseException:
-        with open(os.path.join(out_dir, f"rank{rank}.err"), "w") as f:
-            f.write(traceback.format_exc())
-        raise
-    finally:
-        multihost.shutdown()
-
-
-def start(fn, out_dir, *args, world=2):
+def start(fn, out_dir, *args, world=2, limit_s=LIMIT_S):
     """Start fn(rank, world, out_dir, *args) in `world` ranks."""
-    ctx = torch.multiprocessing.get_context("spawn")
-    port = free_port()
-    procs = [ctx.Process(target=_main,
-                         args=(fn, r, world, port, str(out_dir), args))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    return procs, str(out_dir)
+    return launch.Ranks(world, limit_s).start(fn, str(out_dir), *args,
+                                              timeout_s=TIMEOUT_S)
 
 
-def join(started, timeout=120):
-    """Wait for `start`'s ranks; kill them all at `timeout` s; raise with
-    the tracebacks if a rank failed."""
-    procs, out_dir = started
-    deadline = time.time() + timeout
-    for p in procs:
-        p.join(max(0.0, deadline - time.time()))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    errors = []
-    for r, p in enumerate(procs):
-        path = os.path.join(out_dir, f"rank{r}.err")
-        if p.exitcode != 0:
-            errors.append(f"rank {r} exit {p.exitcode}:\n"
-                          + (open(path).read() if os.path.exists(path)
-                             else "(no traceback: killed at the timeout)"))
+def join(ranks):
+    """Wait for `start`'s ranks; raise with the tracebacks if a rank failed
+    (TimeoutError, the ranks killed, past the world's limit)."""
+    errors = [f"rank {r} exit {code}:\n{out}"
+              for r, (code, out) in enumerate(ranks.wait()) if code != 0]
     if errors:
         raise AssertionError("\n".join(errors))
 
 
-def spawn(fn, out_dir, *args, world=2, timeout=120):
-    join(start(fn, out_dir, *args, world=world), timeout)
+def spawn(fn, out_dir, *args, world=2, limit_s=LIMIT_S):
+    join(start(fn, out_dir, *args, world=world, limit_s=limit_s))
 
 
 # -- collectives --------------------------------------------------------------
